@@ -7,7 +7,9 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``);
 run from a checkout, since it imports ``src/repro_torch``.  Phases, each
 of which stops the run with a non-zero exit when it fails:
 
-1. build the ``zns_alloc`` kernel from ``src/`` and print the build time;
+1. build the three kernels from ``src/`` (``zns_alloc``, flash attention,
+   decode attention), one ``nvcc`` each, all started together, and print
+   each build time;
 2. hold the kernel to its plain PyTorch version, bit for bit, on CUDA
    tensors at the main path's zn540 shapes and at random ragged shapes;
 3. the main path: ``paper_report(device="cuda")`` at the paper's zn540
@@ -21,10 +23,26 @@ of which stops the run with a non-zero exit when it fails:
 6. timings with CUDA events: the kernel, its plain version and
    ``torch.topk`` at the main path's shapes, one ``paper_report`` and
    the fleet dispatch; and one headline dispatch under
-   ``torch.profiler`` for the card's busy share.
+   ``torch.profiler`` for the card's busy share;
+7. hold the two attention kernels to their plain versions on CUDA
+   tensors, f32 and bf16, at the serving slice's shapes and at random
+   ragged ones (``rel_err`` within the reference's ``tol(dtype)``);
+8. the serving path: ``repro_torch.launch.serve.main`` for granite-3-8b
+   at full width and depth (8 prompts of 512 tokens, 31 greedy decode
+   steps), with both launch counts zeroed just before and read just
+   after: 40 flash-attention launches in prefill, 40 x 31
+   decode-attention launches in decode, none crossed;
+9. the same run through the plain attention (``attn_impl="ref"``),
+   teacher-forced with phase 8's tokens: prefill logits, every decode
+   step's logits and the final KV caches held to phase 8's;
+10. timings with CUDA events at the slice's shapes -- each attention
+    kernel, its plain version and one ``scaled_dot_product_attention``
+    call (decode over 40 distinct layer caches, read cold as in a step)
+    -- a second timed serve run, and one decode step under
+    ``torch.profiler`` for the card's busy share.
 
 The last three lines are the card's name and power limit (from
-``nvidia-smi``), a JSON line with the kernel's numbers, and
+``nvidia-smi``), a JSON line with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -34,14 +52,27 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peak rates (NVIDIA data sheet) for the kernel's bound
+#: H100 SXM peak rates (NVIDIA data sheet) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12            # non-tensor-core 32-bit rate
+BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core rate
 FLEET_LANES = 128
+
+#: the serving slice: granite-3-8b, 8 prompts of 512 tokens, 32 tokens out
+SERVE_ARGS = ["--arch", "granite-3-8b", "--batch", "8", "--prompt-len",
+              "512", "--decode-tokens", "32", "--device", "cuda"]
+GRANITE_PARAMS = 8_171_884_544
+#: kernel vs plain version: the reference's tol(dtype) on rel_err
+ATTN_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}
+#: kernel path vs plain path through 40 bf16 layers: the two attention
+#: outputs differ by an ulp of bf16 here and there, and every layer
+#: rounds its residual stream to bf16 again
+SERVE_TOL = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -262,6 +293,274 @@ def profile_dispatch(torch, eng, programs, dyn) -> dict:
             "kernel_us": sum(kern) / len(kern) if kern else None}
 
 
+# --------------------------------------------------------------------- #
+# phase 7: the attention kernels vs their plain versions
+# --------------------------------------------------------------------- #
+def rel_err(torch, got, want) -> tuple:
+    """(max |got - want| / max |want|, max |got - want|), in f32."""
+    diff = float((got.float() - want.float()).abs().max())
+    return diff / (float(want.float().abs().max()) + 1e-9), diff
+
+
+def flash_cases(rng) -> list:
+    """(b, hq, hkv, s, sk, d, causal): the slice's prefill, then random
+    ragged shapes -- S and Sk off the 64-row tiles, D in {64, 96, 128},
+    G in {1, 4, 8}, causal with S <= Sk and not causal."""
+    cases = [(8, 32, 8, 512, 512, 128, True), (1, 4, 4, 1, 1, 64, True),
+             (2, 8, 1, 1, 300, 128, True)]
+    for i in range(12):
+        d = (64, 96, 128)[i % 3]
+        g = (1, 4, 8)[(i // 3) % 3]
+        hkv = 1 + i % 2
+        causal = i % 4 != 3
+        s = int(rng.integers(2, 300))
+        if s % 64 == 0:
+            s += 1
+        sk = s + int(rng.integers(0, 150)) if causal else int(
+            rng.integers(1, 300))
+        cases.append((int(rng.integers(1, 4)), g * hkv, hkv, s, sk, d,
+                      causal))
+    return cases
+
+
+def decode_cases(rng) -> list:
+    """(b, hq, hkv, s, d, lengths): the slice's decode (lengths 513 to
+    544 over a 544-row cache), then random shapes with lengths 0, 1, full
+    and random."""
+    cases = [(8, 32, 8, 544, 128, [513, 517, 522, 526, 531, 535, 540,
+                                   544])]
+    for i in range(12):
+        d = (64, 96, 128)[i % 3]
+        g = (1, 4, 8)[(i // 3) % 3]
+        hkv = 1 + (i % 4) // 2 * 7
+        s = int(rng.integers(1, 700))
+        b = int(rng.integers(3, 7))
+        lengths = [0, 1, s] + [int(x) for x in rng.integers(0, s + 1,
+                                                          b - 3)]
+        cases.append((b, g * hkv, hkv, s, d, lengths))
+    return cases
+
+
+def phase_attention(torch, np, fops, fref, dops, dref) -> dict:
+    """Each attention kernel against its plain version on the same CUDA
+    tensors, f32 and bf16; returns the worst max-abs error per kernel."""
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        for b, hq, hkv, s, sk, d, causal in flash_cases(rng):
+            q = randn((b, hq, s, d), dtype)
+            k, v = randn((b, hkv, sk, d), dtype), randn((b, hkv, sk, d),
+                                                        dtype)
+            before = fops.launches
+            got = fops.attention(q, k, v, causal=causal)
+            check(fops.launches == before + 1, "flash launch not counted")
+            want = fref.attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and err <= tol,
+                  f"flash_attention {dtype} {(b, hq, hkv, s, sk, d)} "
+                  f"causal={causal}: rel err {err} > {tol}")
+            worst["flash_attention"] = max(worst["flash_attention"], diff)
+            n += 1
+        for b, hq, hkv, s, d, lengths in decode_cases(rng):
+            q = randn((b, hq, d), dtype)
+            k, v = randn((b, s, hkv, d), dtype), randn((b, s, hkv, d),
+                                                       dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            before = dops.launches
+            got = dops.decode_attention(q, k, v, lens)
+            check(dops.launches == before + 1, "decode launch not counted")
+            want = dref.decode_attention_ref(q, k, v, lens)
+            torch.cuda.synchronize()
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and err <= tol,
+                  f"decode_attention {dtype} {(b, hq, hkv, s, d)} "
+                  f"lengths {lengths}: rel err {err} > {tol}")
+            check(bool((got[lens == 0] == 0).all()),
+                  "decode_attention: a zero-length row is not 0")
+            worst["decode_attention"] = max(worst["decode_attention"],
+                                            diff)
+            n += 1
+    log(f"phase 7: attention kernels == plain versions on {n} cases "
+        f"(f32 rel err <= {ATTN_TOL['float32']}, bf16 <= "
+        f"{ATTN_TOL['bfloat16']}); max_abs_err {worst}")
+    return worst
+
+
+# --------------------------------------------------------------------- #
+# phases 8-10: the serving path
+# --------------------------------------------------------------------- #
+def phase_serve(torch, serve, fops, dops) -> dict:
+    fops.reset_launches()
+    dops.reset_launches()
+    run = serve.main(SERVE_ARGS)
+    counts = {"flash_attention": fops.launches,
+              "decode_attention": dops.launches}
+    cfg = run["cfg"]
+    n_layers, steps = cfg.n_layers, run["tokens"].shape[1] - 1
+    check(run["n_params"] == GRANITE_PARAMS,
+          f"granite-3-8b has {run['n_params']} parameters, not "
+          f"{GRANITE_PARAMS}")
+    check(run["launches"] == {
+        "prefill": {"flash_attention": n_layers, "decode_attention": 0},
+        "decode": {"flash_attention": 0,
+                   "decode_attention": n_layers * steps}},
+        f"serve launches per phase: {run['launches']}")
+    check(counts == {"flash_attention": n_layers,
+                     "decode_attention": n_layers * steps},
+          f"serve launch counts: {counts}")
+    tokens = run["tokens"]
+    check(tuple(tokens.shape) == (8, 32) and bool((tokens >= 0).all())
+          and bool((tokens < cfg.vocab).all()), "serve tokens out of range")
+    for i, lg in enumerate(run["logits"]):
+        check(bool(torch.isfinite(lg[:, :cfg.vocab]).all()),
+              f"non-finite logits at step {i}")
+    b, p = run["prompts"].shape
+    log(f"phase 8: served {cfg.name} ({run['n_params']} parameters, "
+        f"{n_layers} layers) on cuda: {b} x {p} prompt, {steps} decode "
+        f"steps; launches {counts} (prefill {run['launches']['prefill']}, "
+        f"decode {run['launches']['decode']}); first row "
+        f"{tokens[0, :12].tolist()}")
+    return dict(run, counts=counts)
+
+
+def phase_serve_ref(torch, serve, run) -> dict:
+    """The plain attention path, teacher-forced with the kernel run's
+    tokens, against the kernel run."""
+    cfg = run["cfg"]
+    ref = serve.generate(run["model"], cfg, run["prompts"],
+                         run["tokens"].shape[1], attn_impl="ref",
+                         forced=run["tokens"])
+    check(all(v == 0 for phase in ref["launches"].values()
+              for v in phase.values()),
+          f"the plain path launched a kernel: {ref['launches']}")
+    errs = [rel_err(torch, a[:, :cfg.vocab], b[:, :cfg.vocab])[0]
+            for a, b in zip(run["logits"], ref["logits"])]
+    cache_errs = {n: rel_err(torch, run["caches"][n], ref["caches"][n])[0]
+                  for n in ("k", "v")}
+    agree = float((run["tokens"] == ref["tokens"]).float().mean())
+    log(f"phase 9: kernel path vs plain path (teacher-forced, "
+        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}): prefill "
+        f"logits rel err {errs[0]:.3e}, decode steps max "
+        f"{max(errs[1:]):.3e}, caches {cache_errs}, greedy tokens agree "
+        f"{agree:.4f} (tolerance {SERVE_TOL})")
+    check(max(errs) <= SERVE_TOL and max(cache_errs.values()) <= SERVE_TOL,
+          f"serve kernel path vs plain path beyond {SERVE_TOL}")
+    return {"logit_errs": errs, "cache_errs": cache_errs}
+
+
+def attention_timing(torch, F, fops, fref, dops, dref) -> dict:
+    """CUDA-event times at the slice's shapes: each kernel, its plain
+    version and one SDPA call, with the bound from this run's inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(bf16)
+
+    out = {}
+    # prefill, in the serving layout: (B, S, H, D) viewed as (B, H, S, D)
+    b, s, hq, hkv, d = 8, 512, 32, 8, 128
+    q = randn(b, s, hq, d).transpose(1, 2)
+    k = randn(b, s, hkv, d).transpose(1, 2)
+    v = randn(b, s, hkv, d).transpose(1, 2)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    before = fops.launches
+    ms = cuda_ms(torch, lambda: fops.attention(q, k, v, causal=True))
+    fops.launches = before                     # timing launches not counted
+    plain_ms = cuda_ms(torch, lambda: fref.attention_ref(q, k, v,
+                                                         causal=True),
+                       iters=10)
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True))
+    bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * d * b * hq * s * (s + 1) // 2     # the causal pairs
+    out["flash_attention"] = bound_entry(ms, plain_ms, library_ms,
+                                         bytes_moved, flops)
+
+    # decode over 40 distinct layer caches, so each call reads its cache
+    # from device memory as a real step does (one cache fits the L2)
+    n_layers, seq = 40, 544
+    qd = randn(b, hq, d)
+    lengths = torch.full((b,), seq, dtype=torch.int32, device="cuda")
+    caches = [(randn(b, seq, hkv, d), randn(b, seq, hkv, d))
+              for _ in range(n_layers)]
+
+    def every_layer(fn):
+        return lambda: [fn(kl, vl) for kl, vl in caches]
+
+    before = dops.launches
+    ms = cuda_ms(torch, every_layer(lambda kl, vl: dops.decode_attention(
+        qd, kl, vl, lengths)), iters=10) / n_layers
+    dops.launches = before
+    plain_ms = cuda_ms(torch, every_layer(
+        lambda kl, vl: dref.decode_attention_ref(qd, kl, vl, lengths)),
+        iters=3) / n_layers
+    laid = [(kl.transpose(1, 2).contiguous(), vl.transpose(1, 2).contiguous())
+            for kl, vl in caches]
+    mask = (torch.arange(seq, device="cuda")[None, :] < lengths[:, None]
+            )[:, None, None, :]
+    q4 = qd[:, :, None, :]
+    library_ms = cuda_ms(torch, lambda: [F.scaled_dot_product_attention(
+        q4, kl, vl, attn_mask=mask, enable_gqa=True) for kl, vl in laid],
+        iters=10) / n_layers
+    rows = int(lengths.sum())                     # cache rows these reads
+    bytes_moved = 2 * (2 * rows * hkv * d + 2 * qd.numel())
+    flops = 4 * d * (hq // hkv) * hkv * rows
+    out["decode_attention"] = bound_entry(ms, plain_ms, library_ms,
+                                          bytes_moved, flops)
+    del caches, laid
+    return out
+
+
+def bound_entry(ms, plain_ms, library_ms, bytes_moved, flops) -> dict:
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_moved, "flops": flops}
+
+
+def profile_decode_step(torch, MDL, run) -> dict:
+    """One more decode step (position 543, the cache's last row) under
+    ``torch.profiler``: the card's busy time (its kernel and copy spans,
+    which do not overlap on one stream) against the step's wall time,
+    and the decode-attention kernel's own device time."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, model, caches = run["cfg"], run["model"], run["caches"]
+    step = MDL.make_decode_step(cfg)
+    token = run["tokens"][:, -1]
+    pos = torch.full((token.shape[0],), caches["k"].shape[2] - 1,
+                     dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        step(model, token, caches, pos)            # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(model, token, caches, pos)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    kern = [e.time_range.elapsed_us() for e in device
+            if "decode_kernel" in e.name]
+    return {"wall_us": wall_us, "busy_us": busy_us,
+            "device_events": len(device), "kernel_launches": len(kern),
+            "kernel_us": sum(kern) / len(kern) if kern else None}
+
+
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -277,19 +576,30 @@ def main() -> int:
         fail("no CUDA device: this script runs the port on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
+    import torch.nn.functional as F
     from repro_torch.core import engine, headline, workloads
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.zns_alloc import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MDL
 
     t_start = time.perf_counter()
     card = torch.cuda.get_device_name(0)
     log(f"device: {card} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, cuda {torch.version.cuda}")
 
-    # 1. build
-    t0 = time.perf_counter()
-    lib = _build.build(ops.SOURCE)
-    log(f"phase 1: built {lib.name} in {time.perf_counter() - t0:.2f} s")
+    # 1. build: one nvcc per source, all started together
+    def timed_build(source):
+        t0 = time.perf_counter()
+        return _build.build(source), time.perf_counter() - t0
+    sources = (ops.SOURCE, fops.SOURCE, dops.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for lib, secs in pool.map(timed_build, sources):
+            log(f"phase 1: built {lib.name} in {secs:.2f} s")
 
     # 2. kernel vs plain version
     max_abs_err = phase_kernel(torch, np, ops, ref)
@@ -379,9 +689,68 @@ def main() -> int:
     else:
         log("phase 6: profiler recorded no device events: device busy "
             "share not measured")
+
+    # 7. the attention kernels vs their plain versions
+    attn_err = phase_attention(torch, np, fops, fref, dops, dref)
+
+    # 8. the serving path, through both attention kernels
+    torch.backends.cuda.matmul.allow_tf32 = False    # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    run = phase_serve(torch, serve, fops, dops)
+
+    # 9. the plain attention path, teacher-forced, against it
+    phase_serve_ref(torch, serve, run)
+
+    # 10. timing
+    attn_t = attention_timing(torch, F, fops, fref, dops, dref)
+    for name, t in attn_t.items():
+        log(f"phase 10: {name} at the slice's shape: kernel {t['ms']:.6f} "
+            f"ms, plain {t['plain_ms']:.6f} ms, "
+            f"scaled_dot_product_attention {t['library_ms']:.6f} ms, "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+            f"{t['bytes']} bytes, {t['flops']} flop)")
+    timed = serve.generate(run["model"], run["cfg"], run["prompts"],
+                           run["tokens"].shape[1])
+    steps = run["tokens"].shape[1] - 1
+    log(f"phase 10: serve, second run: prefill {timed['prefill_s']:.6f} s "
+        f"= {run['prompts'].numel() / timed['prefill_s']:.1f} tokens/s; "
+        f"decode {timed['decode_s'] / steps * 1e3:.6f} ms/token step "
+        f"({steps} steps of 8 sequences); first run prefill "
+        f"{run['prefill_s']:.6f} s, decode "
+        f"{run['decode_s'] / steps * 1e3:.6f} ms/step; tokens equal to "
+        f"the first run: {bool(torch.equal(timed['tokens'], run['tokens']))}")
+    del timed
+    prof = profile_decode_step(torch, MDL, run)
+    if prof["device_events"]:
+        log(f"phase 10: profiled one decode step: wall "
+            f"{prof['wall_us']:.1f} us, device busy {prof['busy_us']:.1f} "
+            f"us ({prof['busy_us'] / prof['wall_us']:.4f} of wall) over "
+            f"{prof['device_events']} device events; decode_attention "
+            f"{prof['kernel_launches']} launches, {prof['kernel_us']} us "
+            f"device time each")
+    else:
+        log("phase 10: profiler recorded no device events: device busy "
+            "share not measured")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]
+    attn_entries = [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": run["counts"][name],
+        "max_abs_err": attn_err[name],
+        "ms": attn_t[name]["ms"],
+        "plain_ms": attn_t[name]["plain_ms"],
+        "bound_ms": attn_t[name]["bound_ms"],
+        "bound_by": attn_t[name]["bound_by"],
+        "library_ms": attn_t[name]["library_ms"],
+    } for name, replaces in (
+        ("flash_attention",
+         "src/repro/kernels/flash_attention/flash_attention.py:36"),
+        ("decode_attention",
+         "src/repro/kernels/decode_attention/decode_attention.py:30"))]
     log(gpu_name_and_limit())
     log(json.dumps({"kernels": [{
         "name": "zns_alloc",
@@ -395,7 +764,7 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
-    }]}))
+    }] + attn_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,51 @@
+"""Plain PyTorch version of the decode-attention kernel: the same f32
+streaming softmax over cache tiles of :data:`BLOCK_S` rows, written in
+tensors.
+
+Semantics (shared with ``csrc/decode_attention.cu``): q ``(B, Hq, D)``
+against the cache-native k/v ``(B, S, Hkv, D)``; query head
+``hk * G + g`` reads KV head ``hk``; cache rows at or past ``lengths[b]``
+are masked and contribute exactly 0; scores ``(q . k) / sqrt(D)`` in f32;
+the output has q's dtype, and a sequence with ``lengths[b] == 0`` gets 0
+-- the Pallas kernel's ``l == 0`` guard.  ``repro``'s
+``decode_attention_ref`` and ``decode_attention_chunked`` return the mean
+of V there instead (their masked ``-1e30`` logits softmax to uniform
+weights); the serving path never asks, since its lengths are >= 1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BLOCK_S = 64       # cache rows per tile, as in the CUDA kernel
+NEG_INF = -1e30
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float().reshape(b, hkv, g, d)
+    lengths = lengths.to(device=q.device, dtype=torch.int64)
+    m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for s0 in range(0, s, BLOCK_S):
+        kb = k[:, s0:s0 + BLOCK_S].float()           # (B, BS, Hkv, D)
+        vb = v[:, s0:s0 + BLOCK_S].float()
+        pos = torch.arange(s0, s0 + kb.shape[1], device=q.device)
+        mask = (pos[None, :] < lengths[:, None])[:, None, None]
+        scores = torch.einsum("bhgd,bkhd->bhgk", qf, kb) * scale
+        scores = torch.where(mask, scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.where(mask, torch.exp(scores - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p,
+                                                    vb)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l[..., None]).reshape(b, hq, d).to(q.dtype)

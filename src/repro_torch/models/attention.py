@@ -1,0 +1,125 @@
+"""GQA self-attention with KV-cache serving (the port of
+``repro.models.attention``'s self-attention half).
+
+* Prefill attention goes through the flash-attention kernel
+  (:func:`repro_torch.kernels.flash_attention.ops.attention`), decode
+  through the decode-attention kernel over the cache; ``impl="kernel"``
+  launches them on CUDA tensors (and runs their plain versions on CPU
+  tensors), ``impl="ref"`` runs the plain versions everywhere.
+* KV cache layout ``(B, S, Hkv, D)``, bf16 whatever the parameter dtype,
+  as in the reference.  Unlike the reference's functional updates, the
+  port writes the cache IN PLACE (prefill from position 0, decode one
+  row per sequence) and returns the same dict.
+* Projections stay ``x @ W`` with ``(d_in, d_out)`` weights, and q/k are
+  roped in the ``(B, S, H, D)`` layout of the projection; the kernel
+  reads the ``(B, H, S, D)`` views through their strides, so neither side
+  is copied into another layout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import (
+    attention as flash_attention)
+from repro_torch.models import layers as L
+
+
+def attn_init(generator, d_model: int, n_heads: int, n_kv_heads: int,
+              head_dim: int, *, device,
+              dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    def dense(d_in, d_out):
+        return L.dense_init(generator, d_in, d_out, device=device,
+                            dtype=dtype)
+    return {"wq": dense(d_model, n_heads * head_dim),
+            "wk": dense(d_model, n_kv_heads * head_dim),
+            "wv": dense(d_model, n_kv_heads * head_dim),
+            "wo": dense(n_heads * head_dim, d_model)}
+
+
+def init_kv_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
+                  *, device, dtype: torch.dtype = torch.bfloat16
+                  ) -> Dict[str, torch.Tensor]:
+    shape = (batch, max_seq, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_append(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
+                 v_new: torch.Tensor, pos: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """Write row ``pos[b]`` of sequence ``b`` (k_new/v_new ``(B, Hkv,
+    D)``) in place.  A ``pos`` outside ``[0, max_seq)`` is dropped, like
+    the reference's ``.at[rows, pos].set(mode="drop")`` -- without a host
+    sync: the row at the clamped index is rewritten with its old value."""
+    max_seq = cache["k"].shape[1]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    keep = ((pos >= 0) & (pos < max_seq))[:, None, None]
+    idx = pos.clamp(0, max_seq - 1).long()
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        c[rows, idx] = torch.where(keep, new.to(c.dtype), c[rows, idx])
+    return cache
+
+
+def _project(p, x, n_heads, n_kv_heads, head_dim):
+    lead = x.shape[:-1]
+    q = (x @ p["wq"]).view(*lead, n_heads, head_dim)
+    k = (x @ p["wk"]).view(*lead, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).view(*lead, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def attn_forward(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+                 head_dim: int, rope_theta: float, causal: bool = True,
+                 positions: Optional[torch.Tensor] = None,
+                 impl: str = "kernel", use_rope: bool = True
+                 ) -> torch.Tensor:
+    """Full-sequence self-attention. x: (B, S, d)."""
+    b, s, _ = x.shape
+    q, k, v = _project(p, x, n_heads, n_kv_heads, head_dim)
+    if use_rope:
+        pos = (positions if positions is not None
+               else torch.arange(s, device=x.device))
+        q = L.apply_rope(q, pos[..., None], rope_theta)
+        k = L.apply_rope(k, pos[..., None], rope_theta)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, impl=impl)
+    return o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+
+def attn_prefill(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
+                 n_heads: int, n_kv_heads: int, head_dim: int,
+                 rope_theta: float, impl: str = "kernel"
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill: full causal attention AND write the roped K and the
+    un-roped V into the cache from position 0."""
+    b, s, _ = x.shape
+    q, k, v = _project(p, x, n_heads, n_kv_heads, head_dim)
+    pos = torch.arange(s, device=x.device)[:, None]      # (S, 1): per head
+    qr = L.apply_rope(q, pos, rope_theta)                 # (B, S, H, D)
+    kr = L.apply_rope(k, pos, rope_theta)
+    o = flash_attention(qr.transpose(1, 2), kr.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, impl=impl)
+    cache["k"][:, :s] = kr.to(cache["k"].dtype)
+    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    out = o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return out, cache
+
+
+def attn_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                pos: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+                head_dim: int, rope_theta: float, impl: str = "kernel"
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. x: (B, d); pos: (B,) int32 current lengths."""
+    b = x.shape[0]
+    q, k, v = _project(p, x, n_heads, n_kv_heads, head_dim)
+    pos_b = pos[:, None, None]                           # (B, 1, 1)
+    q = L.apply_rope(q[:, :, None, :], pos_b, rope_theta)[:, :, 0]
+    k = L.apply_rope(k[:, :, None, :], pos_b, rope_theta)[:, :, 0]
+    cache = cache_append(cache, k, v, pos)
+    o = decode_attention(q, cache["k"], cache["v"], pos + 1, impl=impl)
+    return o.reshape(b, n_heads * head_dim) @ p["wo"], cache

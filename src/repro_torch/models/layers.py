@@ -1,0 +1,127 @@
+"""Shared layers: norms, RoPE, MLPs, embeddings (the port of
+``repro.models.layers``).
+
+Parameters keep the reference's layout -- a dense weight is ``(d_in,
+d_out)`` and a layer computes ``x @ W`` -- and every function rounds
+where the reference rounds: compute dtype follows the input, norm
+statistics and RoPE run in f32, the unembedding accumulates in f32.
+Initialisers draw from an explicit ``torch.Generator``; on the ``meta``
+device they only allocate shapes (for parameter counts).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def _normal(shape, generator: Optional[torch.Generator], device,
+            scale: float, dtype: torch.dtype) -> torch.Tensor:
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device) * scale).to(dtype)
+
+
+def dense_init(generator, d_in: int, d_out: int, *, device,
+               dtype: torch.dtype = torch.bfloat16,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """N(0, 1/d_in) weight of shape ``(d_in, d_out)``, drawn in f32."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return _normal((d_in, d_out), generator, device, scale, dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    # cast to the input dtype BEFORE the weight, as the reference does
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * w + b
+
+
+# --------------------------------------------------------------------- #
+# rotary position embeddings
+# --------------------------------------------------------------------- #
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotate-half RoPE in f32.  ``x`` is ``(..., S, D)``; ``positions``
+    broadcasts against ``x.shape[:-1]`` (``(S,)``, ``(..., S)``, or
+    ``(B, 1, 1)`` for one decode token per row)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)
+    angles = positions[..., None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# MLPs
+# --------------------------------------------------------------------- #
+def swiglu_init(generator, d: int, d_ff: int, *, device,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    return {"w_gate": dense_init(generator, d, d_ff, device=device,
+                                 dtype=dtype),
+            "w_up": dense_init(generator, d, d_ff, device=device,
+                               dtype=dtype),
+            "w_down": dense_init(generator, d_ff, d, device=device,
+                                 dtype=dtype)}
+
+
+def swiglu(x: torch.Tensor, p) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    # x * sigmoid(x), rounded op by op like jax.nn.silu
+    h = (g * torch.sigmoid(g)) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def gelu_mlp_init(generator, d: int, d_ff: int, *, device,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
+    return {"w_in": dense_init(generator, d, d_ff, device=device,
+                               dtype=dtype),
+            "w_out": dense_init(generator, d_ff, d, device=device,
+                                dtype=dtype)}
+
+
+def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    h = torch.nn.functional.gelu(x @ p["w_in"], approximate="tanh")
+    return h @ p["w_out"]
+
+
+# --------------------------------------------------------------------- #
+# embeddings / unembedding
+# --------------------------------------------------------------------- #
+def embedding_init(generator, vocab: int, d: int, *, device,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return _normal((vocab, d), generator, device, 0.02, dtype)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding, ``x @ table.T`` accumulated and returned in f32
+    (a bf16 ``matmul`` would round the logits to bf16)."""
+    return x.float() @ table.float().t()
