@@ -7,9 +7,9 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``);
 run from a checkout, since it imports ``src/repro_torch``.  Phases, each
 of which stops the run with a non-zero exit when it fails:
 
-1. build the three kernels from ``src/`` (``zns_alloc``, flash attention,
-   decode attention), one ``nvcc`` each, all started together, and print
-   each build time;
+1. build the four kernels from ``src/`` (``zns_alloc``, flash attention,
+   decode attention, ``ssm_scan``), one ``nvcc`` each, all started
+   together, and print each build time;
 2. hold the kernel to its plain PyTorch version, bit for bit, on CUDA
    tensors at the main path's zn540 shapes and at random ragged shapes;
 3. the main path: ``paper_report(device="cuda")`` at the paper's zn540
@@ -25,8 +25,12 @@ of which stops the run with a non-zero exit when it fails:
    the fleet dispatch; and one headline dispatch under
    ``torch.profiler`` for the card's busy share;
 7. hold the two attention kernels to their plain versions on CUDA
-   tensors, f32 and bf16, at the serving slice's shapes and at random
-   ragged ones (``rel_err`` within the reference's ``tol(dtype)``);
+   tensors, f32 and bf16, at both serving paths' shapes (granite's and
+   the Jamba cut's: S 2048, G 8) and at random ragged ones (``rel_err``
+   within the reference's ``tol(dtype)``);
+7b. hold the ``ssm_scan`` kernel to its plain version the same way: the
+    Jamba cut's prefill shape with b and c as column views, T = 1, T and P
+    off every chunk and CTA width, and 12 random shapes;
 8. the serving path: ``repro_torch.launch.serve.main`` for granite-3-8b
    at full width and depth (8 prompts of 512 tokens, 31 greedy decode
    steps), with both launch counts zeroed just before and read just
@@ -39,15 +43,39 @@ of which stops the run with a non-zero exit when it fails:
     kernel, its plain version and one ``scaled_dot_product_attention``
     call (decode over 40 distinct layer caches, read cold as in a step)
     -- a second timed serve run, and one decode step under
-    ``torch.profiler`` for the card's busy share.
+    ``torch.profiler`` for the card's busy share;
+
+then, with granite's model and caches freed, the Mamba path:
+
+8b. ``serve.build`` and ``serve.generate`` (the functions ``serve.main``
+    calls) for the one-card cut of jamba-1.5-large-398b
+    (``configs/jamba15_large_398b.ONE_CHIP``: 8 layers at full width, 7
+    Mamba and 1 attention, dense FFNs; weights from seed 0 on the card):
+    8 prompts of 2048 tokens, 31 greedy decode steps, with every launch
+    count zeroed just before and read just after -- ``ssm_scan`` 7 and
+    ``flash_attention`` 1 in prefill, ``decode_attention`` 31 in decode,
+    none crossed;
+9b. the same run through the plain attention and the plain scan
+    (``attn_impl="ref", ssm_impl="ref"``), teacher-forced with phase 8b's
+    tokens: every step's logits and the final KV and Mamba caches held to
+    phase 8b's;
+10b. CUDA-event times at the Jamba cut's shapes -- ``ssm_scan`` beside
+     its plain version and its bound (the issue floor of its
+     exponentials and f32 instructions, with the share of exponentials
+     best moved from the SFU to the f32 pipes, see :func:`scan_floor`), flash attention (S 2048, G 8) and
+     decode attention (G 8) beside their plain versions and SDPA -- a
+     second timed serve run, and one profiled decode step.
 
 The last three lines are the card's name and power limit (from
-``nvidia-smi``), a JSON line with every kernel's numbers, and
+``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
+per kernel and path (``path``: ``paper_report``, granite-3-8b, the Jamba
+cut), each with that path's launches and the times at its shapes -- and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -61,18 +89,36 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12            # non-tensor-core 32-bit rate
 BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core rate
+#: the scan's issue floor.  Per SM and clock, compute capability 9.0
+#: issues one warp instruction on each of its 4 schedulers (128 lane-
+#: instructions, which is also the f32 pipes' width) and computes 16 ex2
+#: on its special-function units (CUDA C++ Programming Guide, "Arithmetic
+#: Instructions" throughput table), on 132 SMs at the clock the data
+#: sheet's f32 rate implies, 67e12 / (132 SMs x 128 lanes x 2 flops per
+#: FMA) = 1.983 GHz
+SMS = 132
+LANES_PER_SM_PER_CLOCK = 128
+SFU_EX2_PER_SM_PER_CLOCK = 16
+SM_CLOCK_HZ = OPS_PER_S / (SMS * LANES_PER_SM_PER_CLOCK * 2)
+#: an exp2 on the f32 pipes instead of the SFU: round to an integer, one
+#: subtract, a degree-3 polynomial (3 FMAs), a shift and an integer add
+#: into the exponent field -- 7 instructions
+EXP_POLY_INSTRUCTIONS = 7
 FLEET_LANES = 128
 
 #: the serving slice: granite-3-8b, 8 prompts of 512 tokens, 32 tokens out
 SERVE_ARGS = ["--arch", "granite-3-8b", "--batch", "8", "--prompt-len",
               "512", "--decode-tokens", "32", "--device", "cuda"]
 GRANITE_PARAMS = 8_171_884_544
-#: kernel vs plain version: the reference's tol(dtype) on rel_err
-ATTN_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}
+#: every kernel vs its plain version: the reference's tol(dtype) on rel_err
+KERNEL_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}
 #: kernel path vs plain path through 40 bf16 layers: the two attention
 #: outputs differ by an ulp of bf16 here and there, and every layer
 #: rounds its residual stream to bf16 again
 SERVE_TOL = 5e-2
+#: the Mamba slice: 8 prompts of 2048 tokens, 32 tokens out
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_TOKENS = 8, 2048, 32
+JAMBA_PARAMS = 8_462_049_280
 
 
 def fail(msg: str) -> None:
@@ -303,10 +349,12 @@ def rel_err(torch, got, want) -> tuple:
 
 
 def flash_cases(rng) -> list:
-    """(b, hq, hkv, s, sk, d, causal): the slice's prefill, then random
-    ragged shapes -- S and Sk off the 64-row tiles, D in {64, 96, 128},
-    G in {1, 4, 8}, causal with S <= Sk and not causal."""
-    cases = [(8, 32, 8, 512, 512, 128, True), (1, 4, 4, 1, 1, 64, True),
+    """(b, hq, hkv, s, sk, d, causal): the two serving paths' prefills
+    (granite, and the Jamba cut at S 2048 and G 8), then random ragged
+    shapes -- S and Sk off the 64-row tiles, D in {64, 96, 128}, G in {1,
+    4, 8}, causal with S <= Sk and not causal."""
+    cases = [(8, 32, 8, 512, 512, 128, True),
+             (8, 64, 8, 2048, 2048, 128, True), (1, 4, 4, 1, 1, 64, True),
              (2, 8, 1, 1, 300, 128, True)]
     for i in range(12):
         d = (64, 96, 128)[i % 3]
@@ -324,11 +372,14 @@ def flash_cases(rng) -> list:
 
 
 def decode_cases(rng) -> list:
-    """(b, hq, hkv, s, d, lengths): the slice's decode (lengths 513 to
-    544 over a 544-row cache), then random shapes with lengths 0, 1, full
-    and random."""
+    """(b, hq, hkv, s, d, lengths): the two serving paths' decodes
+    (granite: lengths 513 to 544 over a 544-row cache; the Jamba cut at G
+    8: 2049 to 2080 over 2080 rows), then random shapes with lengths 0, 1,
+    full and random."""
     cases = [(8, 32, 8, 544, 128, [513, 517, 522, 526, 531, 535, 540,
-                                   544])]
+                                   544]),
+             (8, 64, 8, 2080, 128, [2049, 2053, 2058, 2062, 2067, 2071,
+                                    2076, 2080])]
     for i in range(12):
         d = (64, 96, 128)[i % 3]
         g = (1, 4, 8)[(i // 3) % 3]
@@ -354,7 +405,7 @@ def phase_attention(torch, np, fops, fref, dops, dref) -> dict:
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        tol = KERNEL_TOL[str(dtype).split(".")[1]]
         for b, hq, hkv, s, sk, d, causal in flash_cases(rng):
             q = randn((b, hq, s, d), dtype)
             k, v = randn((b, hkv, sk, d), dtype), randn((b, hkv, sk, d),
@@ -390,76 +441,212 @@ def phase_attention(torch, np, fops, fref, dops, dref) -> dict:
                                             diff)
             n += 1
     log(f"phase 7: attention kernels == plain versions on {n} cases "
-        f"(f32 rel err <= {ATTN_TOL['float32']}, bf16 <= "
-        f"{ATTN_TOL['bfloat16']}); max_abs_err {worst}")
+        f"(f32 rel err <= {KERNEL_TOL['float32']}, bf16 <= "
+        f"{KERNEL_TOL['bfloat16']}); max_abs_err {worst}")
+    return worst
+
+
+# --------------------------------------------------------------------- #
+# phase 7b: the selective scan vs its plain version
+# --------------------------------------------------------------------- #
+def ssm_inputs(torch, gen, bh, t, p, n, dtype, *, rank=0, model_a=False):
+    """x ~ N(0, 1), dt a softplus of N(0, 1) (as the Mamba layer makes
+    it), b and c ~ N(0, 1) -- column views of one ``(BH, T, rank + 2N)``
+    tensor when ``rank`` > 0, as ``x_proj``'s output is sliced -- a the
+    Mamba init's ``-(1..N)`` per channel or random in [-16.1, -0.1), d
+    ~ N(0, 1)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(bh, t, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(bh, t, p)).to(dtype)
+    if rank:
+        xdbc = randn(bh, t, rank + 2 * n).to(dtype)
+        b, c = xdbc[..., rank:rank + n], xdbc[..., rank + n:]
+    else:
+        b, c = randn(bh, t, n).to(dtype), randn(bh, t, n).to(dtype)
+    if model_a:
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device="cuda").repeat(p, 1)
+    else:
+        a = -(torch.rand((p, n), generator=gen, device="cuda") * 16 + 0.1)
+    return x, dt, b, c, a, randn(p)
+
+
+def ssm_cases(rng) -> list:
+    """(bh, t, p, n, rank, model_a): the Jamba cut's prefill scan (b and
+    c as views of the 544-column ``x_proj`` output), T = 1, T and P off
+    every chunk and the 128-channel CTA, then 12 random shapes."""
+    cases = [(8, 2048, 16384, 16, 512, True), (2, 1, 300, 16, 0, False),
+             (3, 777, 1000, 16, 7, False), (2, 130, 200, 8, 0, True)]
+    for i in range(12):
+        cases.append((int(rng.integers(1, 7)), int(rng.integers(1, 700)),
+                      int(rng.integers(1, 2000)), int(rng.integers(1, 17)),
+                      int(rng.integers(0, 2)) * int(rng.integers(1, 40)),
+                      bool(i % 2)))
+    return cases
+
+
+def phase_ssm(torch, np, sops, sref) -> float:
+    """The scan kernel against its plain version on the same CUDA
+    tensors, f32 and bf16; returns the worst max-abs error."""
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst, n_cases = 0.0, 0
+    cases = ssm_cases(rng)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[str(dtype).split(".")[1]]
+        for bh, t, p, n, rank, model_a in cases:
+            args = ssm_inputs(torch, gen, bh, t, p, n, dtype, rank=rank,
+                              model_a=model_a)
+            before = sops.launches
+            got = sops.ssm_scan(*args)
+            check(sops.launches == before + 1, "ssm_scan launch not counted")
+            want = sref.ssm_scan_ref(*args)
+            torch.cuda.synchronize()
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and tuple(got.shape) == (bh, t, p)
+                  and err <= tol,
+                  f"ssm_scan {dtype} {(bh, t, p, n)} rank {rank}: rel err "
+                  f"{err} > {tol}")
+            worst = max(worst, diff)
+            n_cases += 1
+            del args, got, want
+    log(f"phase 7b: ssm_scan kernel == plain version on {n_cases} cases "
+        f"(f32 rel err <= {KERNEL_TOL['float32']}, bf16 <= "
+        f"{KERNEL_TOL['bfloat16']}); max_abs_err {worst}")
     return worst
 
 
 # --------------------------------------------------------------------- #
 # phases 8-10: the serving path
 # --------------------------------------------------------------------- #
-def phase_serve(torch, serve, fops, dops) -> dict:
-    fops.reset_launches()
-    dops.reset_launches()
-    run = serve.main(SERVE_ARGS)
-    counts = {"flash_attention": fops.launches,
-              "decode_attention": dops.launches}
+def read_counts(kernels) -> dict:
+    return {name: mod.launches for name, mod in kernels.items()}
+
+
+def check_serve(torch, run, counts, kernels, n_params, want_params) -> None:
+    """Exact launch counts per phase (a prefill kernel launch per layer
+    of its kind, a decode-attention launch per attention layer and step,
+    nothing crossed), the counters agreeing with them, and tokens and
+    logits in range."""
     cfg = run["cfg"]
-    n_layers, steps = cfg.n_layers, run["tokens"].shape[1] - 1
-    check(run["n_params"] == GRANITE_PARAMS,
-          f"granite-3-8b has {run['n_params']} parameters, not "
-          f"{GRANITE_PARAMS}")
-    check(run["launches"] == {
-        "prefill": {"flash_attention": n_layers, "decode_attention": 0},
-        "decode": {"flash_attention": 0,
-                   "decode_attention": n_layers * steps}},
-        f"serve launches per phase: {run['launches']}")
-    check(counts == {"flash_attention": n_layers,
-                     "decode_attention": n_layers * steps},
-          f"serve launch counts: {counts}")
+    kinds = cfg.layer_kinds()
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    steps = run["tokens"].shape[1] - 1
+    want = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
+                        "ssm_scan": n_mamba},
+            "decode": {"flash_attention": 0,
+                       "decode_attention": n_attn * steps, "ssm_scan": 0}}
+    check(n_params == want_params,
+          f"{cfg.name} has {n_params} parameters, not {want_params}")
+    check(run["launches"] == want,
+          f"{cfg.name}: serve launches per phase {run['launches']}, want "
+          f"{want}")
+    check(counts == {name: want["prefill"][name] + want["decode"][name]
+                     for name in kernels},
+          f"{cfg.name}: serve launch counts {counts}")
     tokens = run["tokens"]
-    check(tuple(tokens.shape) == (8, 32) and bool((tokens >= 0).all())
-          and bool((tokens < cfg.vocab).all()), "serve tokens out of range")
+    check(bool((tokens >= 0).all()) and bool((tokens < cfg.vocab).all()),
+          "serve tokens out of range")
     for i, lg in enumerate(run["logits"]):
-        check(bool(torch.isfinite(lg[:, :cfg.vocab]).all()),
-              f"non-finite logits at step {i}")
+        check(tuple(lg.shape) == (tokens.shape[0], cfg.padded_vocab)
+              and bool(torch.isfinite(lg[:, :cfg.vocab]).all()),
+              f"{cfg.name}: bad logits at step {i}")
+
+
+def phase_serve(torch, serve, kernels) -> dict:
+    """granite-3-8b through ``serve.main``, the counts zeroed just before
+    and read just after."""
+    for mod in kernels.values():
+        mod.reset_launches()
+    run = serve.main(SERVE_ARGS)
+    counts = read_counts(kernels)
+    check_serve(torch, run, counts, kernels, run["n_params"],
+                GRANITE_PARAMS)
+    check(tuple(run["tokens"].shape) == (8, 32), "serve token shape")
+    cfg = run["cfg"]
     b, p = run["prompts"].shape
     log(f"phase 8: served {cfg.name} ({run['n_params']} parameters, "
-        f"{n_layers} layers) on cuda: {b} x {p} prompt, {steps} decode "
-        f"steps; launches {counts} (prefill {run['launches']['prefill']}, "
-        f"decode {run['launches']['decode']}); first row "
-        f"{tokens[0, :12].tolist()}")
+        f"{cfg.n_layers} layers) on cuda: {b} x {p} prompt, "
+        f"{run['tokens'].shape[1] - 1} decode steps; launches {counts} "
+        f"(prefill {run['launches']['prefill']}, decode "
+        f"{run['launches']['decode']}); first row "
+        f"{run['tokens'][0, :12].tolist()}")
     return dict(run, counts=counts)
 
 
-def phase_serve_ref(torch, serve, run) -> dict:
-    """The plain attention path, teacher-forced with the kernel run's
-    tokens, against the kernel run."""
+def phase_jamba(torch, serve, cfg, kernels) -> dict:
+    """The one-card Jamba cut through ``serve.build`` and
+    ``serve.generate`` -- the functions ``serve.main`` calls -- with
+    weights from seed 0 on the card, the counts zeroed just before the
+    run and read just after."""
+    torch.cuda.reset_peak_memory_stats()
+    model = serve.build(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in model.parameters())
+    prompts = torch.from_numpy(serve.make_prompts(
+        cfg, JAMBA_BATCH, JAMBA_PROMPT, seed=0)).to("cuda")
+    for mod in kernels.values():
+        mod.reset_launches()
+    run = serve.generate(model, cfg, prompts, JAMBA_TOKENS)
+    counts = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run = dict(run, cfg=cfg, model=model, prompts=prompts,
+               n_params=n_params, counts=counts)
+    check_serve(torch, run, counts, kernels, n_params, JAMBA_PARAMS)
+    check(tuple(run["tokens"].shape) == (JAMBA_BATCH, JAMBA_TOKENS),
+          "jamba token shape")
+    # prefill leaves the Mamba state as it was, as the reference does;
+    # decode then moved it
+    check(bool(run["caches"]["ssm"].abs().sum() > 0),
+          "decode left the Mamba state at zero")
+    steps = JAMBA_TOKENS - 1
+    log(f"phase 8b: served {cfg.name} one-card cut ({n_params} "
+        f"parameters, {cfg.n_layers} layers: {cfg.layer_kinds()}) on "
+        f"cuda: {JAMBA_BATCH} x {JAMBA_PROMPT} prompt, {steps} decode "
+        f"steps; launches {counts} (prefill {run['launches']['prefill']}, "
+        f"decode {run['launches']['decode']}); prefill "
+        f"{run['prefill_s']:.6f} s, decode "
+        f"{run['decode_s'] / steps * 1e3:.6f} ms/step (first run); peak "
+        f"device memory {peak_gb:.2f} GB; first row "
+        f"{run['tokens'][0, :12].tolist()}")
+    return run
+
+
+def phase_serve_ref(torch, serve, run, phase: str) -> dict:
+    """The plain path (attention and scan), teacher-forced with the
+    kernel run's tokens, against the kernel run: every step's logits and
+    every cache."""
     cfg = run["cfg"]
     ref = serve.generate(run["model"], cfg, run["prompts"],
                          run["tokens"].shape[1], attn_impl="ref",
-                         forced=run["tokens"])
-    check(all(v == 0 for phase in ref["launches"].values()
-              for v in phase.values()),
+                         ssm_impl="ref", forced=run["tokens"])
+    check(all(v == 0 for phase_counts in ref["launches"].values()
+              for v in phase_counts.values()),
           f"the plain path launched a kernel: {ref['launches']}")
     errs = [rel_err(torch, a[:, :cfg.vocab], b[:, :cfg.vocab])[0]
             for a, b in zip(run["logits"], ref["logits"])]
+    check(set(run["caches"]) == set(ref["caches"]), "cache names differ")
     cache_errs = {n: rel_err(torch, run["caches"][n], ref["caches"][n])[0]
-                  for n in ("k", "v")}
+                  for n in run["caches"]}
     agree = float((run["tokens"] == ref["tokens"]).float().mean())
-    log(f"phase 9: kernel path vs plain path (teacher-forced, "
-        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}): prefill "
-        f"logits rel err {errs[0]:.3e}, decode steps max "
-        f"{max(errs[1:]):.3e}, caches {cache_errs}, greedy tokens agree "
-        f"{agree:.4f} (tolerance {SERVE_TOL})")
+    log(f"phase {phase}: {cfg.name} kernel path vs plain path "
+        f"(teacher-forced, allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}): prefill logits rel err "
+        f"{errs[0]:.3e}, decode steps max {max(errs[1:]):.3e}, caches "
+        f"{cache_errs}, greedy tokens agree {agree:.4f} (tolerance "
+        f"{SERVE_TOL})")
     check(max(errs) <= SERVE_TOL and max(cache_errs.values()) <= SERVE_TOL,
-          f"serve kernel path vs plain path beyond {SERVE_TOL}")
+          f"{cfg.name}: serve kernel path vs plain path beyond {SERVE_TOL}")
     return {"logit_errs": errs, "cache_errs": cache_errs}
 
 
-def attention_timing(torch, F, fops, fref, dops, dref) -> dict:
-    """CUDA-event times at the slice's shapes: each kernel, its plain
-    version and one SDPA call, with the bound from this run's inputs."""
+def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
+                     d, n_caches, seq) -> dict:
+    """CUDA-event times at one serving path's shapes: each kernel, its
+    plain version and one SDPA call, with the bound from this run's
+    inputs.  Decode is timed over ``n_caches`` distinct caches of ``seq``
+    rows at full length, so each call reads its cache from device memory
+    as a real step does."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16 = torch.bfloat16
 
@@ -469,42 +656,41 @@ def attention_timing(torch, F, fops, fref, dops, dref) -> dict:
 
     out = {}
     # prefill, in the serving layout: (B, S, H, D) viewed as (B, H, S, D)
-    b, s, hq, hkv, d = 8, 512, 32, 8, 128
     q = randn(b, s, hq, d).transpose(1, 2)
     k = randn(b, s, hkv, d).transpose(1, 2)
     v = randn(b, s, hkv, d).transpose(1, 2)
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    iters = max(10, 50 * 512 * 512 // (s * s))
     before = fops.launches
-    ms = cuda_ms(torch, lambda: fops.attention(q, k, v, causal=True))
+    ms = cuda_ms(torch, lambda: fops.attention(q, k, v, causal=True),
+                 iters=iters)
     fops.launches = before                     # timing launches not counted
     plain_ms = cuda_ms(torch, lambda: fref.attention_ref(q, k, v,
                                                          causal=True),
-                       iters=10)
+                       iters=min(10, iters))
     library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qc, kc, vc, is_causal=True, enable_gqa=True))
     bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())
     flops = 4 * d * b * hq * s * (s + 1) // 2     # the causal pairs
     out["flash_attention"] = bound_entry(ms, plain_ms, library_ms,
                                          bytes_moved, flops)
+    del q, k, v, qc, kc, vc
 
-    # decode over 40 distinct layer caches, so each call reads its cache
-    # from device memory as a real step does (one cache fits the L2)
-    n_layers, seq = 40, 544
     qd = randn(b, hq, d)
     lengths = torch.full((b,), seq, dtype=torch.int32, device="cuda")
     caches = [(randn(b, seq, hkv, d), randn(b, seq, hkv, d))
-              for _ in range(n_layers)]
+              for _ in range(n_caches)]
 
     def every_layer(fn):
         return lambda: [fn(kl, vl) for kl, vl in caches]
 
     before = dops.launches
     ms = cuda_ms(torch, every_layer(lambda kl, vl: dops.decode_attention(
-        qd, kl, vl, lengths)), iters=10) / n_layers
+        qd, kl, vl, lengths)), iters=10) / n_caches
     dops.launches = before
     plain_ms = cuda_ms(torch, every_layer(
         lambda kl, vl: dref.decode_attention_ref(qd, kl, vl, lengths)),
-        iters=3) / n_layers
+        iters=3) / n_caches
     laid = [(kl.transpose(1, 2).contiguous(), vl.transpose(1, 2).contiguous())
             for kl, vl in caches]
     mask = (torch.arange(seq, device="cuda")[None, :] < lengths[:, None]
@@ -512,7 +698,7 @@ def attention_timing(torch, F, fops, fref, dops, dref) -> dict:
     q4 = qd[:, :, None, :]
     library_ms = cuda_ms(torch, lambda: [F.scaled_dot_product_attention(
         q4, kl, vl, attn_mask=mask, enable_gqa=True) for kl, vl in laid],
-        iters=10) / n_layers
+        iters=10) / n_caches
     rows = int(lengths.sum())                     # cache rows these reads
     bytes_moved = 2 * (2 * rows * hkv * d + 2 * qd.numel())
     flops = 4 * d * (hq // hkv) * hkv * rows
@@ -520,6 +706,58 @@ def attention_timing(torch, F, fops, fref, dops, dref) -> dict:
                                           bytes_moved, flops)
     del caches, laid
     return out
+
+
+def ssm_timing(torch, sops, sref) -> dict:
+    """CUDA-event times of the scan at the Jamba cut's prefill shape
+    (BH 8, T 2048, P 16384, N 16, bf16, b and c views of the x_proj
+    output, the init's A), kernel and plain version, with the bound from
+    this run's inputs.  No single PyTorch call computes the scan, so
+    there is no library time."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bh, t, p, n, rank = JAMBA_BATCH, JAMBA_PROMPT, 16384, 16, 512
+    args = ssm_inputs(torch, gen, bh, t, p, n, torch.bfloat16, rank=rank,
+                      model_a=True)
+    before = sops.launches
+    ms = cuda_ms(torch, lambda: sops.ssm_scan(*args), iters=20)
+    sops.launches = before                     # timing launches not counted
+    plain_ms = cuda_ms(torch, lambda: sref.ssm_scan_ref(*args), iters=2)
+    # each input read once and y written once: x, dt, y (BH, T, P) bf16;
+    # b, c (BH, T, N) bf16; a (P, N) and d (P,) f32
+    bytes_moved = 3 * 2 * bh * t * p + 2 * 2 * bh * t * n + 4 * (p * n + p)
+    exps = bh * t * p * n
+    # f32 instructions per state entry and step: dt * a, u * b, h * da +
+    # u * b and h * c + acc; per channel and step: dt * x, d * x + acc
+    instr = 4 * exps + 2 * bh * t * p
+    del args
+    floor = scan_floor(exps, instr)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return dict(floor, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(bytes_ms, floor["ops_ms"]),
+                bound_by=("bytes" if bytes_ms >= floor["ops_ms"]
+                          else "operations"),
+                bytes=bytes_moved, bytes_ms=bytes_ms)
+
+
+def scan_floor(exps: int, instr: int) -> dict:
+    """The least time for ``exps`` exponentials and ``instr`` other f32
+    instructions, given that each exponential runs either on the SFU (one
+    issue slot) or on the f32 pipes (``EXP_POLY_INSTRUCTIONS`` issue
+    slots): the share ``f`` done on the f32 pipes balances the SFU's time
+    ``(1 - f) E / 16`` against the issue time ``(instr + (1 - f) E +
+    c f E) / 128`` per SM and clock.  Also the floor with every
+    exponential on the SFU, the present kernel's design."""
+    r = LANES_PER_SM_PER_CLOCK / SFU_EX2_PER_SM_PER_CLOCK
+    c = EXP_POLY_INSTRUCTIONS
+    f = min(max(((r - 1) * exps - instr) / ((c + r - 1) * exps), 0.0), 1.0)
+    clocks = max((1 - f) * exps / SFU_EX2_PER_SM_PER_CLOCK,
+                 (instr + (1 - f + c * f) * exps) / LANES_PER_SM_PER_CLOCK)
+    sfu_only = max(exps / SFU_EX2_PER_SM_PER_CLOCK,
+                   (instr + exps) / LANES_PER_SM_PER_CLOCK)
+    per_ms = 1e3 / (SMS * SM_CLOCK_HZ)
+    return {"ops_ms": clocks * per_ms, "poly_share": f,
+            "sfu_only_ms": sfu_only * per_ms, "exps": exps,
+            "instr": instr}
 
 
 def bound_entry(ms, plain_ms, library_ms, bytes_moved, flops) -> dict:
@@ -532,7 +770,7 @@ def bound_entry(ms, plain_ms, library_ms, bytes_moved, flops) -> dict:
 
 
 def profile_decode_step(torch, MDL, run) -> dict:
-    """One more decode step (position 543, the cache's last row) under
+    """One more decode step (at the cache's last row) under
     ``torch.profiler``: the card's busy time (its kernel and copy spans,
     which do not overlap on one stream) against the step's wall time,
     and the decode-attention kernel's own device time."""
@@ -561,6 +799,45 @@ def profile_decode_step(torch, MDL, run) -> dict:
             "kernel_us": sum(kern) / len(kern) if kern else None}
 
 
+def log_serve_timing(torch, F, serve, MDL, run, phase, fops, fref, dops,
+                     dref, **shapes) -> dict:
+    """One serving path's timings: the attention kernels at its shapes,
+    a second timed serve run, and one profiled decode step."""
+    attn_t = attention_timing(torch, F, fops, fref, dops, dref, **shapes)
+    for name, t in attn_t.items():
+        log(f"phase {phase}: {name} at {run['cfg'].name}'s shape {shapes}: "
+            f"kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, "
+            f"scaled_dot_product_attention {t['library_ms']:.6f} ms, "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+            f"{t['bytes']} bytes, {t['flops']} flop)")
+    timed = serve.generate(run["model"], run["cfg"], run["prompts"],
+                           run["tokens"].shape[1])
+    steps = run["tokens"].shape[1] - 1
+    b = run["prompts"].shape[0]
+    log(f"phase {phase}: serve {run['cfg'].name}, second run: prefill "
+        f"{timed['prefill_s']:.6f} s = "
+        f"{run['prompts'].numel() / timed['prefill_s']:.1f} tokens/s; "
+        f"decode {timed['decode_s'] / steps * 1e3:.6f} ms/step ({steps} "
+        f"steps of {b} sequences); first run prefill "
+        f"{run['prefill_s']:.6f} s, decode "
+        f"{run['decode_s'] / steps * 1e3:.6f} ms/step; tokens equal to "
+        f"the first run: {bool(torch.equal(timed['tokens'], run['tokens']))}")
+    del timed
+    prof = profile_decode_step(torch, MDL, run)
+    if prof["device_events"]:
+        log(f"phase {phase}: profiled one {run['cfg'].name} decode step: "
+            f"wall {prof['wall_us']:.1f} us, device busy "
+            f"{prof['busy_us']:.1f} us "
+            f"({prof['busy_us'] / prof['wall_us']:.4f} of wall) over "
+            f"{prof['device_events']} device events; decode_attention "
+            f"{prof['kernel_launches']} launches, {prof['kernel_us']} us "
+            f"device time each")
+    else:
+        log(f"phase {phase}: profiler recorded no device events: device "
+            f"busy share not measured")
+    return attn_t
+
+
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -577,12 +854,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch.nn.functional as F
+    from repro_torch.configs.jamba15_large_398b import ONE_CHIP
     from repro_torch.core import engine, headline, workloads
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
     from repro_torch.kernels.zns_alloc import ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import model as MDL
@@ -596,7 +876,7 @@ def main() -> int:
     def timed_build(source):
         t0 = time.perf_counter()
         return _build.build(source), time.perf_counter() - t0
-    sources = (ops.SOURCE, fops.SOURCE, dops.SOURCE)
+    sources = (ops.SOURCE, fops.SOURCE, dops.SOURCE, sops.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         for lib, secs in pool.map(timed_build, sources):
             log(f"phase 1: built {lib.name} in {secs:.2f} s")
@@ -690,70 +970,87 @@ def main() -> int:
         log("phase 6: profiler recorded no device events: device busy "
             "share not measured")
 
-    # 7. the attention kernels vs their plain versions
+    # 7. the attention kernels vs their plain versions; 7b. the scan
     attn_err = phase_attention(torch, np, fops, fref, dops, dref)
+    ssm_err = phase_ssm(torch, np, sops, sref)
 
-    # 8. the serving path, through both attention kernels
+    # 8. the serving path, granite-3-8b, through both attention kernels
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
-    run = phase_serve(torch, serve, fops, dops)
+    kernels = {"flash_attention": fops, "decode_attention": dops,
+               "ssm_scan": sops}
+    run = phase_serve(torch, serve, kernels)
 
     # 9. the plain attention path, teacher-forced, against it
-    phase_serve_ref(torch, serve, run)
+    phase_serve_ref(torch, serve, run, "9")
 
     # 10. timing
-    attn_t = attention_timing(torch, F, fops, fref, dops, dref)
-    for name, t in attn_t.items():
-        log(f"phase 10: {name} at the slice's shape: kernel {t['ms']:.6f} "
-            f"ms, plain {t['plain_ms']:.6f} ms, "
-            f"scaled_dot_product_attention {t['library_ms']:.6f} ms, "
-            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
-            f"{t['bytes']} bytes, {t['flops']} flop)")
-    timed = serve.generate(run["model"], run["cfg"], run["prompts"],
-                           run["tokens"].shape[1])
-    steps = run["tokens"].shape[1] - 1
-    log(f"phase 10: serve, second run: prefill {timed['prefill_s']:.6f} s "
-        f"= {run['prompts'].numel() / timed['prefill_s']:.1f} tokens/s; "
-        f"decode {timed['decode_s'] / steps * 1e3:.6f} ms/token step "
-        f"({steps} steps of 8 sequences); first run prefill "
-        f"{run['prefill_s']:.6f} s, decode "
-        f"{run['decode_s'] / steps * 1e3:.6f} ms/step; tokens equal to "
-        f"the first run: {bool(torch.equal(timed['tokens'], run['tokens']))}")
-    del timed
-    prof = profile_decode_step(torch, MDL, run)
-    if prof["device_events"]:
-        log(f"phase 10: profiled one decode step: wall "
-            f"{prof['wall_us']:.1f} us, device busy {prof['busy_us']:.1f} "
-            f"us ({prof['busy_us'] / prof['wall_us']:.4f} of wall) over "
-            f"{prof['device_events']} device events; decode_attention "
-            f"{prof['kernel_launches']} launches, {prof['kernel_us']} us "
-            f"device time each")
-    else:
-        log("phase 10: profiler recorded no device events: device busy "
-            "share not measured")
+    granite_t = log_serve_timing(torch, F, serve, MDL, run, "10", fops,
+                                 fref, dops, dref, b=8, s=512, hq=32,
+                                 hkv=8, d=128, n_caches=40, seq=544)
+    granite = (run["cfg"].name, run["counts"], granite_t)
+    del run                         # granite's weights and caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8b. the Mamba path: the one-card Jamba cut through all three
+    # serving kernels
+    run = phase_jamba(torch, serve, ONE_CHIP, kernels)
+
+    # 9b. the plain attention and scan, teacher-forced, against it
+    phase_serve_ref(torch, serve, run, "9b")
+
+    # 10b. timing
+    ssm_t = ssm_timing(torch, sops, sref)
+    log(f"phase 10b: ssm_scan at the slice's shape (8 x 2048 x 16384, N "
+        f"16, bf16): kernel {ssm_t['ms']:.6f} ms, plain "
+        f"{ssm_t['plain_ms']:.6f} ms, no library call; bound "
+        f"{ssm_t['bound_ms']:.6f} ms ({ssm_t['bound_by']}: {ssm_t['exps']} "
+        f"exponentials and {ssm_t['instr']} other f32 instructions, "
+        f"{ssm_t['poly_share']:.4f} of the exponentials as "
+        f"{EXP_POLY_INSTRUCTIONS}-instruction polynomials, at "
+        f"{SFU_EX2_PER_SM_PER_CLOCK} ex2 and {LANES_PER_SM_PER_CLOCK} issued "
+        f"lanes per SM per clock, {SMS} SMs at {SM_CLOCK_HZ / 1e9:.4f} GHz = "
+        f"{ssm_t['ops_ms']:.6f} ms; all exponentials on the SFU "
+        f"{ssm_t['sfu_only_ms']:.6f} ms; {ssm_t['bytes']} bytes = "
+        f"{ssm_t['bytes_ms']:.6f} ms)")
+    attn_t = log_serve_timing(torch, F, serve, MDL, run, "10b", fops, fref,
+                              dops, dref, b=JAMBA_BATCH, s=JAMBA_PROMPT,
+                              hq=ONE_CHIP.n_heads,
+                              hkv=ONE_CHIP.n_kv_heads, d=128, n_caches=4,
+                              seq=JAMBA_PROMPT + JAMBA_TOKENS)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]
-    attn_entries = [{
+    errs = dict(attn_err, ssm_scan=ssm_err)
+    replaces = {
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:36",
+        "decode_attention":
+            "src/repro/kernels/decode_attention/decode_attention.py:30",
+        "ssm_scan": "src/repro/kernels/ssm_scan/ssm_scan.py:36"}
+    # one entry per kernel and serving path, each with that path's
+    # launches and the times at that path's shapes
+    paths = [granite, (f"{ONE_CHIP.name} one-card cut", run["counts"],
+                       dict(attn_t, ssm_scan=ssm_t))]
+    serve_entries = [{
         "name": name,
+        "path": path,
         "route": "cuda",
         "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
-        "replaces": replaces,
-        "launches": run["counts"][name],
-        "max_abs_err": attn_err[name],
-        "ms": attn_t[name]["ms"],
-        "plain_ms": attn_t[name]["plain_ms"],
-        "bound_ms": attn_t[name]["bound_ms"],
-        "bound_by": attn_t[name]["bound_by"],
-        "library_ms": attn_t[name]["library_ms"],
-    } for name, replaces in (
-        ("flash_attention",
-         "src/repro/kernels/flash_attention/flash_attention.py:36"),
-        ("decode_attention",
-         "src/repro/kernels/decode_attention/decode_attention.py:30"))]
+        "replaces": replaces[name],
+        "launches": counts[name],
+        "max_abs_err": errs[name],
+        "ms": timed[name]["ms"],
+        "plain_ms": timed[name]["plain_ms"],
+        "bound_ms": timed[name]["bound_ms"],
+        "bound_by": timed[name]["bound_by"],
+        "library_ms": timed[name]["library_ms"],
+    } for path, counts, timed in paths for name in timed]
     log(gpu_name_and_limit())
     log(json.dumps({"kernels": [{
         "name": "zns_alloc",
+        "path": "paper_report",
         "route": "cuda",
         "source": "src/repro_torch/kernels/zns_alloc/csrc/zns_alloc.cu",
         "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
@@ -764,7 +1061,7 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
-    }] + attn_entries}))
+    }] + serve_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -5,6 +5,8 @@ attention 7:1 interleave; MoE (16 experts, top-2) every other layer.
 Sub-quadratic in the Mamba layers; the 9 attention layers hold KV caches
 (sequence-sharded for long_500k).
 """
+import dataclasses
+
 from repro_torch.configs.base import ArchConfig, register
 
 CONFIG = register(ArchConfig(
@@ -27,3 +29,22 @@ CONFIG = register(ArchConfig(
     sub_quadratic=True,
     source="arXiv:2403.19887",
 ))
+
+#: What one 80 GB card serves of Jamba-1.5-Large: every width as
+#: published (d_model 8192, 64 query heads over 8 KV heads of 128, Mamba
+#: d_inner 16384 with state 16, conv 4 and dt_rank 512, vocab 65536),
+#: with two cuts --
+#:
+#: * depth 72 -> 8: one whole period of the layer pattern, 7 Mamba layers
+#:   and the attention layer at slot 3, the published 7:1 ratio;
+#: * experts 16 -> none: a dense SwiGLU FFN of the published expert width
+#:   (24576) on all 8 layers, since one period with all 16 experts is
+#:   ~45 B parameters (89 GB in bf16) and the MoE layer is not ported.
+#:
+#: 8,462,049,280 parameters, 16.9 GB in bf16.  Not registered: the
+#: registry mirrors the reference's.
+ONE_CHIP = dataclasses.replace(
+    CONFIG, n_layers=8, n_experts=0, top_k=0,
+    source="arXiv:2403.19887; ai21labs/AI21-Jamba-1.5-Large config.json "
+           "(one pattern period of 8 layers; dense FFNs of width 24576 in "
+           "place of the 16 experts)")

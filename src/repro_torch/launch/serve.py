@@ -6,10 +6,12 @@
 
 Parameters are drawn on ``--device`` from ``torch.Generator`` seeded with
 ``--seed``; prompts come from ``numpy.random.default_rng(seed)`` as in the
-reference.  Prefill runs the flash-attention kernel and every decode step
-the decode-attention kernel; :func:`generate` with ``attn_impl="ref"``
-runs their plain versions instead.  :func:`main` returns the run (tokens, logits, caches, timings and kernel
-launches per phase) so callers can check it.
+reference.  Prefill runs the flash-attention kernel in each attention
+layer and the selective-scan kernel in each Mamba layer, and every decode
+step the decode-attention kernel; :func:`generate` with
+``attn_impl="ref"`` / ``ssm_impl="ref"`` runs their plain versions
+instead.  :func:`main` returns the run (tokens, logits, caches, timings
+and kernel launches per phase) so callers can check it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import model as MDL
 from repro_torch.models import transformer as T
 
@@ -52,7 +55,8 @@ def _sync(device: torch.device) -> None:
 
 def _launches() -> dict:
     return {"flash_attention": flash_ops.launches,
-            "decode_attention": decode_ops.launches}
+            "decode_attention": decode_ops.launches,
+            "ssm_scan": ssm_ops.launches}
 
 
 def _delta(after: dict, before: dict) -> dict:
@@ -62,17 +66,18 @@ def _delta(after: dict, before: dict) -> dict:
 @torch.inference_mode()
 def generate(model: T.Transformer, cfg: ArchConfig, prompts: torch.Tensor,
              decode_tokens: int, *, attn_impl: str = "kernel",
+             ssm_impl: str = "kernel",
              forced: Optional[torch.Tensor] = None) -> dict:
     """Prefill ``prompts`` (B, P) then run ``decode_tokens - 1`` greedy
     decode steps.  With ``forced`` (B, decode_tokens) the decode inputs
     are teacher-forced: step ``i`` is fed ``forced[:, i]`` instead of the
     token it picked before.  Returns the tokens (B, decode_tokens), every
     step's logits (prefill first), the caches, wall times (synchronised)
-    and the attention kernels' launches in each phase."""
+    and the kernels' launches in each phase."""
     b, p = prompts.shape
     dev = prompts.device
     caches = T.init_caches(cfg, b, p + decode_tokens, device=dev)
-    prefill = MDL.make_prefill_step(cfg, attn_impl)
+    prefill = MDL.make_prefill_step(cfg, attn_impl, ssm_impl)
     decode = MDL.make_decode_step(cfg, attn_impl)
 
     n0 = _launches()
@@ -132,7 +137,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         per_tok = run["decode_s"] / (args.decode_tokens - 1)
         print(f"[serve] decode: {per_tok * 1e3:.2f} ms/token "
               f"({args.batch / per_tok:.0f} tok/s batch-aggregate)")
-    print(f"[serve] attention kernel launches: {run['launches']}")
+    print(f"[serve] kernel launches: {run['launches']}")
     print("[serve] sample continuations (first 3 rows):")
     for row in run["tokens"][:3].tolist():
         print("   ", row[:12])

@@ -88,10 +88,13 @@ def swiglu_init(generator, d: int, d_ff: int, *, device,
                                  dtype=dtype)}
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` rounded op by op, like ``jax.nn.silu``."""
+    return x * torch.sigmoid(x)
+
+
 def swiglu(x: torch.Tensor, p) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    # x * sigmoid(x), rounded op by op like jax.nn.silu
-    h = (g * torch.sigmoid(g)) * (x @ p["w_up"])
+    h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
 
 

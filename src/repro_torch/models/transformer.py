@@ -1,5 +1,6 @@
-"""Architecture assembly for serving: the dense ``"attn"`` block stack
-(the port of ``repro.models.transformer``'s dense path).
+"""Architecture assembly for serving: stacks of ``"attn"`` and
+``"mamba"`` blocks (the port of ``repro.models.transformer``'s serving
+path).
 
 The reference stacks parameters per pattern slot and runs
 ``jax.lax.scan`` over repetitions; the port holds one :class:`Block` per
@@ -8,18 +9,29 @@ layer ``n_prefix + r * len(pattern) + j`` is the reference's slot ``j``,
 repetition ``r`` -- :func:`params_from_numpy` / :func:`params_to_numpy`
 map between the two.
 
-Supported: ``"attn"`` blocks with a dense FFN (SwiGLU or GELU, RMSNorm or
-LayerNorm).  Mamba, mLSTM/sLSTM and cross-attention blocks, MoE FFNs, MLA
-and a dense first layer raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Supported: ``"attn"`` (self-attention) and ``"mamba"`` blocks, each with
+a dense FFN (SwiGLU or GELU, RMSNorm or LayerNorm) or none.  Each kind's
+mixer init, cache, prefill and decode, and its names in the reference's
+trees, are one entry of :data:`KINDS`.  mLSTM/sLSTM
+and cross-attention blocks, MoE FFNs, MLA and a dense first layer raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
-Caches are ``{"k", "v"}`` tensors of shape ``(n_layers, B, max_seq, Hkv,
-D)`` in bf16, written in place by prefill and decode.
+Caches hold the two kinds of state side by side, each stacked over the
+layers of its kind (:func:`cache_slots` maps a layer to its kind and its
+index there): ``{"k", "v"}`` of shape ``(n_attn, B, max_seq, Hkv, D)`` in
+bf16 for the attention layers, and ``{"conv", "ssm"}`` of shapes
+``(n_mamba, B, K-1, d_inner)`` bf16 and ``(n_mamba, B, d_inner, N)`` f32
+for the Mamba layers; a dense model has only ``k`` and ``v``, one per
+layer.  Prefill writes the KV cache in place and, like the reference,
+leaves the Mamba state as it was (``repro.models.transformer`` skips
+the terminal state: decode starts every Mamba layer from its cached
+state, zero after :func:`init_caches`).  Decode writes both in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +40,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
 _QUEUE = "ROADMAP Queue 1 item 11"
 
@@ -53,11 +66,6 @@ def _check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: the encoder and cross-attention (VLM/audio) are "
             f"not ported yet ({_QUEUE})")
     for kind in cfg.pattern:
-        if kind == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba blocks (models/mamba.py and the "
-                f"ssm_scan kernel) are not ported yet ({_QUEUE}; ROADMAP "
-                f"Queue 2 item 4)")
         if kind in ("mlstm", "slstm"):
             raise NotImplementedError(
                 f"{cfg.name}: {kind} blocks (models/xlstm.py) are not "
@@ -66,7 +74,7 @@ def _check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention blocks (VLM/audio) are not "
                 f"ported yet ({_QUEUE})")
-        if kind != "attn":
+        if kind not in KINDS:
             raise ValueError(kind)
 
 
@@ -125,16 +133,18 @@ class Norm(nn.Module):
 
 
 class Block(nn.Module):
-    """One ``"attn"`` layer: pre-norm self-attention and a dense FFN."""
+    """One layer: a pre-norm mixer -- self-attention (``kind="attn"``)
+    or the Mamba mixer (``kind="mamba"``) -- and a dense FFN."""
 
-    def __init__(self, cfg: ArchConfig, norm1: Norm,
-                 attn: Dict[str, torch.Tensor], norm2: Optional[Norm],
+    def __init__(self, cfg: ArchConfig, kind: str, norm1: Norm,
+                 mixer: Dict[str, torch.Tensor], norm2: Optional[Norm],
                  ffn: Optional[Dict[str, torch.Tensor]]):
         super().__init__()
         self.cfg = cfg
+        self.kind = kind
         self.norm1 = norm1
-        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in
-                                      attn.items()})
+        self.mixer = nn.ParameterDict({k: _frozen(v) for k, v in
+                                       mixer.items()})
         self.norm2 = norm2
         self.ffn = (nn.ParameterDict({k: _frozen(v) for k, v in
                                       ffn.items()})
@@ -155,16 +165,81 @@ class Block(nn.Module):
         return x + L.gelu_mlp(h, self.ffn)
 
     def prefill(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                impl: str) -> torch.Tensor:
-        o, _ = A.attn_prefill(self.attn, self.norm1(x), cache, impl=impl,
-                              **self._dims())
+                attn_impl: str, ssm_impl: str) -> torch.Tensor:
+        o = KINDS[self.kind].prefill(self, self.norm1(x), cache, attn_impl,
+                                     ssm_impl)
         return self._ffn(x + o)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: torch.Tensor, impl: str) -> torch.Tensor:
-        o, _ = A.attn_decode(self.attn, self.norm1(x), cache, pos,
-                             impl=impl, **self._dims())
+               pos: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        o = KINDS[self.kind].decode(self, self.norm1(x), cache, pos,
+                                    attn_impl)
         return self._ffn(x + o)
+
+
+# --------------------------------------------------------------------- #
+# the block kinds
+# --------------------------------------------------------------------- #
+def _attn_init(generator, cfg: ArchConfig, device, dtype):
+    return A.attn_init(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, device=device, dtype=dtype)
+
+
+def _attn_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
+    return A.init_kv_cache(batch, max_seq, cfg.n_kv_heads,
+                           cfg.resolved_head_dim, device=device)
+
+
+def _attn_prefill(blk: Block, h, cache, attn_impl, ssm_impl):
+    return A.attn_prefill(blk.mixer, h, cache, impl=attn_impl,
+                          **blk._dims())[0]
+
+
+def _attn_decode(blk: Block, h, cache, pos, attn_impl):
+    return A.attn_decode(blk.mixer, h, cache, pos, impl=attn_impl,
+                         **blk._dims())[0]
+
+
+def _mamba_init(generator, cfg: ArchConfig, device, dtype):
+    return M.mamba_init(generator, cfg.d_model, expand=cfg.ssm_expand,
+                        state=cfg.ssm_state, conv=cfg.ssm_conv,
+                        device=device, dtype=dtype)
+
+
+def _mamba_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
+    return M.init_mamba_cache(batch, cfg.d_model, expand=cfg.ssm_expand,
+                              state=cfg.ssm_state, conv=cfg.ssm_conv,
+                              device=device)
+
+
+def _mamba_prefill(blk: Block, h, cache, attn_impl, ssm_impl):
+    # the Mamba cache is left as it was, as in the reference
+    return M.mamba_forward(blk.mixer, h, state=blk.cfg.ssm_state,
+                           impl=ssm_impl)
+
+
+def _mamba_decode(blk: Block, h, cache, pos, attn_impl):
+    return M.mamba_decode(blk.mixer, h, cache, state=blk.cfg.ssm_state)[0]
+
+
+@dataclass(frozen=True)
+class Kind:
+    """Everything the stack knows of one block kind."""
+    mixer_key: str      # the reference's name for its mixer parameters
+    cache_key: str      # the reference's name for its cache
+    cache_names: Tuple[str, ...]
+    init: Callable      # (generator, cfg, device, dtype) -> mixer params
+    cache: Callable     # (cfg, batch, max_seq, device) -> a layer's cache
+    prefill: Callable   # (block, h, cache, attn_impl, ssm_impl) -> out
+    decode: Callable    # (block, h, cache, pos, attn_impl) -> out
+
+
+KINDS: Dict[str, Kind] = {
+    "attn": Kind("self", "kv", ("k", "v"), _attn_init, _attn_cache,
+                 _attn_prefill, _attn_decode),
+    "mamba": Kind("mamba", "mamba", ("conv", "ssm"), _mamba_init,
+                  _mamba_cache, _mamba_prefill, _mamba_decode),
+}
 
 
 class Transformer(nn.Module):
@@ -207,33 +282,52 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     (``jax.random`` and torch generators differ): tests carry the
     reference's parameters over with :func:`params_from_numpy`.  On the
     ``meta`` device nothing is drawn or allocated."""
+    _check_supported(cfg)
     device = torch.device(device)
-    hd = cfg.resolved_head_dim
     embed = L.embedding_init(generator, cfg.padded_vocab, cfg.d_model,
                              device=device, dtype=dtype)
     blocks = []
-    for _ in range(cfg.n_layers):
-        attn = A.attn_init(generator, cfg.d_model, cfg.n_heads,
-                           cfg.n_kv_heads, hd, device=device, dtype=dtype)
+    for kind in cfg.layer_kinds():
+        mixer = KINDS[kind].init(generator, cfg, device, dtype)
         ffn = _ffn_params(generator, cfg, device, dtype)
-        blocks.append(Block(cfg, _norm_params(cfg, device, dtype), attn,
+        blocks.append(Block(cfg, kind, _norm_params(cfg, device, dtype),
+                            mixer,
                             _norm_params(cfg, device, dtype)
                             if ffn is not None else None, ffn))
     return Transformer(cfg, embed, blocks, _norm_params(cfg, device, dtype))
 
 
+def cache_slots(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """(kind, index in that kind's cache stack) for every layer."""
+    seen = dict.fromkeys(KINDS, 0)
+    out = []
+    for kind in cfg.layer_kinds():
+        out.append((kind, seen[kind]))
+        seen[kind] += 1
+    return out
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
                 device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed caches, each kind's stacked over the layers of that kind
+    (a layer's shapes and dtypes read off its kind's cache on ``meta``)."""
     _check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    kinds = cfg.layer_kinds()
+    caches = {}
+    for name, kind in KINDS.items():
+        n = kinds.count(name)
+        if n:
+            caches.update({c: torch.zeros((n,) + t.shape, dtype=t.dtype,
+                                          device=device)
+                           for c, t in kind.cache(cfg, batch, max_seq,
+                                                  "meta").items()})
+    return caches
 
 
-def _layer_cache(caches: Dict[str, torch.Tensor], i: int
+def _layer_cache(caches: Dict[str, torch.Tensor], slot: Tuple[str, int]
                  ) -> Dict[str, torch.Tensor]:
-    return {"k": caches["k"][i], "v": caches["v"][i]}
+    kind, j = slot
+    return {name: caches[name][j] for name in KINDS[kind].cache_names}
 
 
 def _logits(model: Transformer, cfg: ArchConfig,
@@ -244,13 +338,13 @@ def _logits(model: Transformer, cfg: ArchConfig,
 
 def forward_prefill(model: Transformer, cfg: ArchConfig,
                     tokens: torch.Tensor, caches: Dict[str, torch.Tensor],
-                    attn_impl: str = "kernel"
+                    attn_impl: str = "kernel", ssm_impl: str = "kernel"
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefill: returns (last-token logits (B, Vp) f32, the caches,
-    filled in place)."""
+    """Prefill: returns (last-token logits (B, Vp) f32, the caches, the
+    KV caches filled in place)."""
     x = L.embed(tokens, model.embed)
-    for i, blk in enumerate(model.blocks):
-        x = blk.prefill(x, _layer_cache(caches, i), attn_impl)
+    for blk, slot in zip(model.blocks, cache_slots(cfg)):
+        x = blk.prefill(x, _layer_cache(caches, slot), attn_impl, ssm_impl)
     return _logits(model, cfg, x[:, -1]), caches
 
 
@@ -261,8 +355,8 @@ def forward_decode(model: Transformer, cfg: ArchConfig, token: torch.Tensor,
     """One decode step. token (B,), pos (B,) int32 -> (logits (B, Vp)
     f32, the caches, appended in place)."""
     x = L.embed(token, model.embed)
-    for i, blk in enumerate(model.blocks):
-        x = blk.decode(x, _layer_cache(caches, i), pos, attn_impl)
+    for blk, slot in zip(model.blocks, cache_slots(cfg)):
+        x = blk.decode(x, _layer_cache(caches, slot), pos, attn_impl)
     return _logits(model, cfg, x), caches
 
 
@@ -323,17 +417,19 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda") -> Transformer:
     :class:`Transformer`, bit for bit."""
     blocks: List[Optional[Block]] = [None] * cfg.n_layers
     for j, slot in enumerate(tree["slots"]):
+        kind = cfg.pattern[j]
         for r in range(n_scan_reps(cfg)):
             p = _rep(slot, r)
-            attn = {k: _from_numpy(v, device)
-                    for k, v in p["mixer"]["self"].items()}
+            mixer = {k: _from_numpy(v, device)
+                     for k, v in p["mixer"][KINDS[kind].mixer_key].items()}
             n2 = ffn = None
             if "ffn" in p:
                 ffn = {k: _from_numpy(v, device)
                        for k, v in p["ffn"].items()}
                 n2 = _norm_from(cfg, p["norm2"], device)
             blocks[_layer_index(cfg, j, r)] = Block(
-                cfg, _norm_from(cfg, p["norm1"], device), attn, n2, ffn)
+                cfg, kind, _norm_from(cfg, p["norm1"], device), mixer, n2,
+                ffn)
     return Transformer(cfg, _from_numpy(tree["embed"], device), blocks,
                        _norm_from(cfg, tree["final_norm"], device))
 
@@ -350,8 +446,8 @@ def params_to_numpy(model: Transformer, bf16_dtype=None):
 
     def one(b: Block):
         p = {"norm1": _norm_to(b.norm1, bf16_dtype),
-             "mixer": {"self": {k: _to_numpy(v, bf16_dtype)
-                                for k, v in b.attn.items()}}}
+             "mixer": {KINDS[b.kind].mixer_key: {
+                 k: _to_numpy(v, bf16_dtype) for k, v in b.mixer.items()}}}
         if b.ffn is not None:
             p["norm2"] = _norm_to(b.norm2, bf16_dtype)
             p["ffn"] = {k: _to_numpy(v, bf16_dtype)
@@ -368,14 +464,16 @@ def params_to_numpy(model: Transformer, bf16_dtype=None):
 
 def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
                     bf16_dtype=None):
-    """The port's caches in the reference's layout:
-    ``{"slots": [{"kv": {"k", "v"}}]}`` with leaves ``(reps, B, S, Hkv,
-    D)`` per pattern slot."""
+    """The port's caches in the reference's layout: ``{"slots": [...]}``
+    with ``{"kv": {"k", "v"}}`` (leaves ``(reps, B, S, Hkv, D)``) for an
+    attention slot and ``{"mamba": {"conv", "ssm"}}`` (leaves ``(reps, B,
+    K-1, d_inner)`` and ``(reps, B, d_inner, N)``) for a Mamba slot."""
     reps = n_scan_reps(cfg)
+    where = cache_slots(cfg)
     slots = []
-    for j in range(len(cfg.pattern)):
-        idx = [_layer_index(cfg, j, r) for r in range(reps)]
-        slots.append({"kv": {name: _to_numpy(caches[name][idx],
-                                             bf16_dtype)
-                             for name in ("k", "v")}})
+    for j, kind in enumerate(cfg.pattern):
+        idx = [where[_layer_index(cfg, j, r)][1] for r in range(reps)]
+        slots.append({KINDS[kind].cache_key: {
+            name: _to_numpy(caches[name][idx], bf16_dtype)
+            for name in KINDS[kind].cache_names}})
     return {"slots": slots}

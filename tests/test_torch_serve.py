@@ -353,8 +353,10 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert run["caches"]["k"].shape == (2, 2, 11, 4, 16)
     # the CPU wrappers ran the plain versions: no kernel launch counted
     assert run["launches"] == {
-        "prefill": {"flash_attention": 0, "decode_attention": 0},
-        "decode": {"flash_attention": 0, "decode_attention": 0}}
+        "prefill": {"flash_attention": 0, "decode_attention": 0,
+                    "ssm_scan": 0},
+        "decode": {"flash_attention": 0, "decode_attention": 0,
+                   "ssm_scan": 0}}
     # the plain attention path gives the same run on the CPU
     again = serve.generate(run["model"], run["cfg"], run["prompts"], 3,
                            attn_impl="ref")
