@@ -9,7 +9,8 @@ of which stops the run with a non-zero exit when it fails:
 
 1. build the four kernels from ``src/`` (``zns_alloc``, flash attention,
    decode attention, ``ssm_scan``), one ``nvcc`` each, all started
-   together, and print each build time;
+   together, and print each build time; beside them, ``ptxas -v`` of the
+   two attention sources (registers and spills of each kernel);
 2. hold the kernel to its plain PyTorch version, bit for bit, on CUDA
    tensors at the main path's zn540 shapes and at random ragged shapes;
 3. the main path: ``paper_report(device="cuda")`` at the paper's zn540
@@ -26,8 +27,11 @@ of which stops the run with a non-zero exit when it fails:
    ``torch.profiler`` for the card's busy share;
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at both serving paths' shapes (granite's and
-   the Jamba cut's: S 2048, G 8) and at random ragged ones (``rel_err``
-   within the reference's ``tol(dtype)``);
+   the Jamba cut's: S 2048, G 8), at S and Sk on, one before and one
+   after the flash kernel's 128-row tiles and at D 16, at lengths on,
+   one before and one after a split boundary of the decode kernel's
+   plan and with most splits empty, and at random ragged shapes
+   (``rel_err`` within the reference's ``tol(dtype)``);
 7b. hold the ``ssm_scan`` kernel to its plain version the same way: the
     Jamba cut's prefill shape with b and c as column views, T = 1, T and P
     off every chunk and CTA width, and 12 random shapes;
@@ -41,9 +45,11 @@ of which stops the run with a non-zero exit when it fails:
    step's logits and the final KV caches held to phase 8's;
 10. timings with CUDA events at the slice's shapes -- each attention
     kernel, its plain version and one ``scaled_dot_product_attention``
-    call (decode over 40 distinct layer caches, read cold as in a step)
-    -- a second timed serve run, and one decode step under
-    ``torch.profiler`` for the card's busy share;
+    call (decode over 40 distinct layer caches, read cold as in a step),
+    with each kernel's design, registers, spills, device time per launch
+    (``torch.profiler``) and share of its bound -- a second timed serve
+    run, and one decode step under ``torch.profiler`` for the card's busy
+    share;
 
 then, with granite's model and caches freed, the Mamba path:
 
@@ -350,12 +356,17 @@ def rel_err(torch, got, want) -> tuple:
 
 def flash_cases(rng) -> list:
     """(b, hq, hkv, s, sk, d, causal): the two serving paths' prefills
-    (granite, and the Jamba cut at S 2048 and G 8), then random ragged
-    shapes -- S and Sk off the 64-row tiles, D in {64, 96, 128}, G in {1,
-    4, 8}, causal with S <= Sk and not causal."""
+    (granite, and the Jamba cut at S 2048 and G 8); S and Sk at 127, 128,
+    129 and 64 mod 128 about the bf16 kernel's 128-row tiles, and D 16;
+    then random ragged shapes -- S and Sk off the 64-row tiles, D in {64,
+    96, 128}, G in {1, 4, 8}, causal with S <= Sk and not causal."""
     cases = [(8, 32, 8, 512, 512, 128, True),
              (8, 64, 8, 2048, 2048, 128, True), (1, 4, 4, 1, 1, 64, True),
-             (2, 8, 1, 1, 300, 128, True)]
+             (2, 8, 1, 1, 300, 128, True),
+             (2, 8, 2, 127, 127, 128, True), (2, 8, 2, 128, 128, 128, True),
+             (2, 8, 2, 129, 129, 128, True), (1, 8, 1, 192, 320, 128, True),
+             (2, 4, 4, 127, 129, 64, True), (1, 4, 2, 128, 192, 96, False),
+             (2, 4, 2, 129, 192, 16, True), (1, 2, 1, 64, 64, 16, False)]
     for i in range(12):
         d = (64, 96, 128)[i % 3]
         g = (1, 4, 8)[(i // 3) % 3]
@@ -371,15 +382,22 @@ def flash_cases(rng) -> list:
     return cases
 
 
-def decode_cases(rng) -> list:
+def decode_cases(rng, split_plan, n_sm) -> list:
     """(b, hq, hkv, s, d, lengths): the two serving paths' decodes
     (granite: lengths 513 to 544 over a 544-row cache; the Jamba cut at G
-    8: 2049 to 2080 over 2080 rows), then random shapes with lengths 0, 1,
-    full and random."""
+    8: 2049 to 2080 over 2080 rows); lengths on, one before and one after
+    a split boundary of the plan the kernel runs (``split_plan`` on this
+    card's ``n_sm``), and a batch whose splits are mostly empty; then
+    random shapes with lengths 0, 1, full and random."""
     cases = [(8, 32, 8, 544, 128, [513, 517, 522, 526, 531, 535, 540,
                                    544]),
              (8, 64, 8, 2080, 128, [2049, 2053, 2058, 2062, 2067, 2071,
                                     2076, 2080])]
+    for b, hq, hkv, s in ((4, 32, 8, 1000), (3, 64, 8, 2080)):
+        rps, _ = split_plan(b, hkv, s, n_sm)
+        cases.append((b, hq, hkv, s, 128, [rps, rps - 1, rps + 1,
+                                           2 * rps][:b]))
+    cases.append((8, 32, 8, 2080, 128, [1, 0, 64, 65, 100, 3, 128, 2]))
     for i in range(12):
         d = (64, 96, 128)[i % 3]
         g = (1, 4, 8)[(i // 3) % 3]
@@ -395,6 +413,7 @@ def decode_cases(rng) -> list:
 def phase_attention(torch, np, fops, fref, dops, dref) -> dict:
     """Each attention kernel against its plain version on the same CUDA
     tensors, f32 and bf16; returns the worst max-abs error per kernel."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(12)
     gen = torch.Generator(device="cuda").manual_seed(12)
     worst = {"flash_attention": 0.0, "decode_attention": 0.0}
@@ -421,7 +440,8 @@ def phase_attention(torch, np, fops, fref, dops, dref) -> dict:
                   f"causal={causal}: rel err {err} > {tol}")
             worst["flash_attention"] = max(worst["flash_attention"], diff)
             n += 1
-        for b, hq, hkv, s, d, lengths in decode_cases(rng):
+        for b, hq, hkv, s, d, lengths in decode_cases(rng, dops.split_plan,
+                                                      n_sm):
             q = randn((b, hq, d), dtype)
             k, v = randn((b, s, hkv, d), dtype), randn((b, s, hkv, d),
                                                        dtype)
@@ -664,6 +684,9 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
     before = fops.launches
     ms = cuda_ms(torch, lambda: fops.attention(q, k, v, causal=True),
                  iters=iters)
+    flash_dev_us = device_us(torch, lambda: fops.attention(q, k, v,
+                                                           causal=True),
+                             "flash_fwd_tc", reps=20)
     fops.launches = before                     # timing launches not counted
     plain_ms = cuda_ms(torch, lambda: fref.attention_ref(q, k, v,
                                                          causal=True),
@@ -672,8 +695,9 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
         qc, kc, vc, is_causal=True, enable_gqa=True))
     bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())
     flops = 4 * d * b * hq * s * (s + 1) // 2     # the causal pairs
-    out["flash_attention"] = bound_entry(ms, plain_ms, library_ms,
-                                         bytes_moved, flops)
+    out["flash_attention"] = dict(bound_entry(ms, plain_ms, library_ms,
+                                              bytes_moved, flops),
+                                  device_us=flash_dev_us)
     del q, k, v, qc, kc, vc
 
     qd = randn(b, hq, d)
@@ -687,6 +711,9 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
     before = dops.launches
     ms = cuda_ms(torch, every_layer(lambda kl, vl: dops.decode_attention(
         qd, kl, vl, lengths)), iters=10) / n_caches
+    decode_dev_us = device_us(torch, every_layer(
+        lambda kl, vl: dops.decode_attention(qd, kl, vl, lengths)),
+        "decode_kernel", reps=max(1, 40 // n_caches))
     dops.launches = before
     plain_ms = cuda_ms(torch, every_layer(
         lambda kl, vl: dref.decode_attention_ref(qd, kl, vl, lengths)),
@@ -702,8 +729,25 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
     rows = int(lengths.sum())                     # cache rows these reads
     bytes_moved = 2 * (2 * rows * hkv * d + 2 * qd.numel())
     flops = 4 * d * (hq // hkv) * hkv * rows
-    out["decode_attention"] = bound_entry(ms, plain_ms, library_ms,
-                                          bytes_moved, flops)
+    pairs = hkv * -(-(hq // hkv) // 16)     # KV heads x 16-head tiles
+    rows_per_split, n_split = dops.split_plan(
+        b, pairs, seq,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    out["decode_attention"] = dict(
+        bound_entry(ms, plain_ms, library_ms, bytes_moved, flops),
+        device_us=decode_dev_us,
+        design=f"bf16 on the tensor cores (mma.sync m16n8k16, the G heads "
+               f"as the A operand's rows, P in registers); split-S: "
+               f"{n_split} splits of {rows_per_split} rows = "
+               f"{b * pairs * n_split} CTAs of 128 "
+               f"threads, 16-byte cp.async into a two-slot ring (a K tile "
+               f"and a V tile of 64 rows, each refilled once consumed), "
+               f"last-CTA log-sum-exp combine in the same launch")
+    out["flash_attention"]["design"] = (
+        "bf16 on the tensor cores: wgmma m64n128k16 for Q.K^T (both "
+        "operands in shared memory) and P.V (P in registers), a 2-stage "
+        "cp.async ring of 128-row K/V tiles, 2 warpgroups per 128-row q "
+        f"tile = {b * hq * -(-s // 128)} CTAs")
     del caches, laid
     return out
 
@@ -760,6 +804,26 @@ def scan_floor(exps: int, instr: int) -> dict:
             "instr": instr}
 
 
+def device_us(torch, fn, name: str, reps: int) -> float:
+    """The mean device time of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn`` under ``torch.profiler`` (the kernel alone,
+    free of the host's launch cost), or None when the profiler saw none.
+    A region of one or a few launches can come back without device
+    events, so it holds many."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    return sum(spans) / len(spans) if spans else None
+
+
 def bound_entry(ms, plain_ms, library_ms, bytes_moved, flops) -> dict:
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
@@ -800,16 +864,23 @@ def profile_decode_step(torch, MDL, run) -> dict:
 
 
 def log_serve_timing(torch, F, serve, MDL, run, phase, fops, fref, dops,
-                     dref, **shapes) -> dict:
-    """One serving path's timings: the attention kernels at its shapes,
+                     dref, usage, **shapes) -> dict:
+    """One serving path's timings: the attention kernels at its shapes
+    (with each kernel's design and ``ptxas`` resources from ``usage``),
     a second timed serve run, and one profiled decode step."""
     attn_t = attention_timing(torch, F, fops, fref, dops, dref, **shapes)
+    marks = {"flash_attention": "flash_fwd_tc",
+             "decode_attention": "decode_kernel_tc"}
     for name, t in attn_t.items():
+        res = [u for m, u in usage[name].items() if marks[name] in m]
         log(f"phase {phase}: {name} at {run['cfg'].name}'s shape {shapes}: "
-            f"kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, "
+            f"kernel {t['ms']:.6f} ms ({t['bound_ms'] / t['ms']:.4f} of "
+            f"its bound; device {t['device_us']} us per launch), plain "
+            f"{t['plain_ms']:.6f} ms, "
             f"scaled_dot_product_attention {t['library_ms']:.6f} ms, "
             f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
-            f"{t['bytes']} bytes, {t['flops']} flop)")
+            f"{t['bytes']} bytes, {t['flops']} flop); design: "
+            f"{t['design']}; bf16 kernel resources {res}")
     timed = serve.generate(run["model"], run["cfg"], run["prompts"],
                            run["tokens"].shape[1])
     steps = run["tokens"].shape[1] - 1
@@ -877,9 +948,14 @@ def main() -> int:
         t0 = time.perf_counter()
         return _build.build(source), time.perf_counter() - t0
     sources = (ops.SOURCE, fops.SOURCE, dops.SOURCE, sops.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 2) as pool:
+        usage = pool.map(_build.resource_usage, (fops.SOURCE, dops.SOURCE))
         for lib, secs in pool.map(timed_build, sources):
             log(f"phase 1: built {lib.name} in {secs:.2f} s")
+        usage = dict(zip(("flash_attention", "decode_attention"), usage))
+    for name, kernels_of in usage.items():
+        for mangled, u in kernels_of.items():
+            log(f"phase 1: ptxas {name} {mangled}: {u}")
 
     # 2. kernel vs plain version
     max_abs_err = phase_kernel(torch, np, ops, ref)
@@ -986,8 +1062,8 @@ def main() -> int:
 
     # 10. timing
     granite_t = log_serve_timing(torch, F, serve, MDL, run, "10", fops,
-                                 fref, dops, dref, b=8, s=512, hq=32,
-                                 hkv=8, d=128, n_caches=40, seq=544)
+                                 fref, dops, dref, usage, b=8, s=512,
+                                 hq=32, hkv=8, d=128, n_caches=40, seq=544)
     granite = (run["cfg"].name, run["counts"], granite_t)
     del run                         # granite's weights and caches
     gc.collect()
@@ -1015,7 +1091,8 @@ def main() -> int:
         f"{ssm_t['sfu_only_ms']:.6f} ms; {ssm_t['bytes']} bytes = "
         f"{ssm_t['bytes_ms']:.6f} ms)")
     attn_t = log_serve_timing(torch, F, serve, MDL, run, "10b", fops, fref,
-                              dops, dref, b=JAMBA_BATCH, s=JAMBA_PROMPT,
+                              dops, dref, usage, b=JAMBA_BATCH,
+                              s=JAMBA_PROMPT,
                               hq=ONE_CHIP.n_heads,
                               hkv=ONE_CHIP.n_kv_heads, d=128, n_caches=4,
                               seq=JAMBA_PROMPT + JAMBA_TOKENS)

@@ -2,9 +2,10 @@
 
 Each kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout (the hash
-covers the source and the flags, so an edited source builds anew), and
-loaded with ``ctypes``.  Nothing here runs when a module is imported: the
-CPU tests import every module on a machine with no compiler.
+covers the source, the headers beside it in its ``csrc/`` and the flags,
+so an edited source or header builds anew), and loaded with ``ctypes``.
+Nothing here runs when a module is imported: the CPU tests import every
+module on a machine with no compiler.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,9 +43,12 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")) + sorted(
+            source.parent.glob("*.h")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Path:
@@ -66,6 +71,48 @@ def build(source: Path) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    return out
+
+
+def resource_usage(source: Path) -> Dict[str, dict]:
+    """Each kernel's registers, spill bytes and shared memory as ``ptxas
+    -v`` reports them, compiling ``source`` for ``sm_90a`` to a
+    throw-away cubin: ``{mangled name: {"registers", "spill_stores",
+    "spill_loads", "smem"}}``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [nvcc(), *[f for f in NVCC_FLAGS if f not in ("-shared",
+                                                         "-Xcompiler",
+                                                         "-fPIC")],
+             "-cubin", "-Xptxas", "-v", "-o", str(Path(tmp) / "k.cubin"),
+             str(source)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return parse_ptxas(proc.stdout + proc.stderr)
+
+
+def parse_ptxas(text: str) -> Dict[str, dict]:
+    out: Dict[str, dict] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(m.group(1)) if m else 0
     return out
 
 

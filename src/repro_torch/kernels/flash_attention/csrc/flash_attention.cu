@@ -4,40 +4,60 @@
 // Replaces the Pallas TPU kernel `_kernel` in
 // src/repro/kernels/flash_attention/flash_attention.py (launched by
 // `flash_attention_pallas`).  The plain PyTorch version of the same
-// function is ../ref.py; the two agree to f32 rounding.
+// function is ../ref.py.
 //
 // What it computes: q (B, Hq, S, D), k/v (B, Hkv, Sk, D), addressed
 // through their batch/head/row strides with a contiguous last dimension;
-// query head h reads KV head h / (Hq / Hkv).  Scores (q . k) / sqrt(D)
-// in f32, an f32 online softmax (running max m, sum l, accumulator acc),
-// output acc / l in the input dtype, 0 for a row with no unmasked column.
-// Under `causal`, row r sees column c only when c <= r + (Sk - S) -- the
-// offset of the reference's attention_ref (the wrapper rejects S > Sk).
-// The ragged tails of S and Sk are masked here; nothing needs to divide
-// a tile.
+// query head h reads KV head h / (Hq / Hkv).  Scores (q . k) / sqrt(D),
+// an f32 online softmax (running max m, sum l, accumulator acc), output
+// acc / l in the input dtype, 0 for a row with no unmasked column.  Under
+// `causal`, row r sees column c only when c <= r + (Sk - S) -- the offset
+// of the reference's attention_ref (the wrapper rejects S > Sk).  The
+// ragged tails of S and Sk are masked here; nothing needs to divide a
+// tile.
 //
-// What bounds it on an H100: at the serving slice's prefill
-// (q 8 x 32 x 512 x 128, k/v 8 x 8 x 512 x 128, bf16, causal) the bytes
-// are q + k + v + o = 83.9 MB -> 25.0 us at 3.35 TB/s, and the causal
-// half of the two products is 17.2 GFLOP -> 17.4 us at the 989 TFLOP/s
-// bf16 tensor-core peak.  So bytes bound it, barely.
+// What bounds it on an H100: at granite's prefill (q 8 x 32 x 512 x 128,
+// k/v 8 x 8 x 512 x 128, bf16, causal) the bytes, 83.9 MB -> 25.0 us at
+// 3.35 TB/s, barely over the causal half of the two products, 17.2 GFLOP
+// -> 17.4 us at the 989 TFLOP/s bf16 tensor-core peak.  At the Jamba
+// cut's (q 8 x 64 x 2048 x 128 over 8 KV heads) the products bound it:
+// 550 GFLOP -> 0.556 ms.
 //
-// Design (simple first): one CTA of 256 threads per (q tile of 64 rows,
-// q head, batch); the TPU's sequential 4th grid axis becomes a loop over
-// KV tiles of 64 rows inside the CTA, so K/V of a head are streamed once
-// per q tile and m, l and acc never leave registers.  Q, K and V tiles
-// are staged in shared memory as f32 (rows padded by 4 floats so the
-// float4 reads are bank-conflict free).  A 16 x 16 thread grid computes
-// the 64 x 64 score tile, 4 x 4 per thread; each thread owns four query
-// rows, so the row max / sum are 16-lane shuffles and the rescale of
-// its 4 x 8 accumulator slice is local.  P goes through shared memory to
-// the P.V product.  Tiles above the causal diagonal are never loaded.
+// Two kernels, chosen by dtype in the wrapper:
 //
-// What the simple design leaves on the table: the products run on the
-// f32 FMA pipes (67 TFLOP/s peak), not the tensor cores (wgmma, 989 bf16);
-// loads are synchronous (no TMA / cp.async double buffering), so a tile's
-// load is not overlapped with the previous tile's math; and the 119 KB
-// of shared memory holds one CTA (8 warps) per SM.
+// * bf16 (`tc::flash_fwd_tc`, the serving path): the products on the
+//   tensor cores with wgmma, loads overlapped with the math.  One CTA of
+//   two warpgroups per (128-row q tile, q head, batch); the heaviest
+//   causal q tiles are scheduled first (the q tile is the slowest grid
+//   axis, walked in reverse).  Q and a two-stage ring of 128-row K/V
+//   tiles sit in shared memory in the 128-byte-swizzled layout that
+//   wgmma reads (D zero-padded to 128: two 64-column swizzle atoms per
+//   tile); every thread copies its 16-byte chunks with cp.async
+//   (zero-filling the ragged rows and the padded columns), and tile j+1
+//   is in flight while tile j's products and softmax run.  Each
+//   warpgroup owns 64 q rows: S = Q K^T is D/16 wgmma m64n128k16 with
+//   both operands in shared memory and the f32 scores in registers; the
+//   online softmax runs on those registers (ex2.approx with
+//   log2(e)/sqrt(D) folded into one multiply, row max and sum over the
+//   4 lanes sharing a row); P is rounded to bf16 in registers and is the
+//   A operand of the 8 wgmma m64n128k16 of O += P V, with V read from
+//   shared memory as an MN-major B operand.  P never touches shared
+//   memory.  The causal mask is applied only on tiles that cross the
+//   diagonal or Sk, and tiles above the diagonal are never loaded.  The
+//   output goes through shared memory (the warpgroup's own Q rows) to
+//   16-byte stores.  Warpgroup 1 issues its Q K^T after warpgroup 0's (a
+//   named barrier), so that one's softmax overlaps the other's products.
+//   What it leaves on the table: the copies are cp.async issued by the
+//   consumers themselves (not TMA from a producer warp); within a
+//   warpgroup the softmax does not overlap the next tile's Q K^T (the 255
+//   registers a thread leave no room for a second score tile); and the
+//   two warpgroups meet at a CTA barrier on every tile.
+// * f32 (`simt::flash_fwd_kernel`): the tensor cores cannot meet the f32
+//   tolerance (rel err 5e-5; bf16 or tf32 operands keep 8 or 10 mantissa
+//   bits), so f32 runs the first port's SIMT kernel on the f32 FMA pipes:
+//   one CTA of 256 threads per (64-row q tile, q head, batch), Q, K and V
+//   tiles of 64 rows staged as f32 in shared memory, a 16 x 16 thread grid
+//   of 4 x 4 scores, P through shared memory.  No serving path runs it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,10 +65,13 @@
 
 namespace {
 
+constexpr int kMaxD = 128;
+
+namespace simt {
+
 constexpr int kBQ = 64;            // query rows per CTA
 constexpr int kBK = 64;            // KV rows per tile
 constexpr int kThreads = 256;      // 16 x 16
-constexpr int kMaxD = 128;
 constexpr int kPS = kBK + 16;      // row stride of the P tile
 constexpr float kNegInf = -1e30f;
 
@@ -263,11 +286,336 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   return (int)cudaGetLastError();
 }
 
+}  // namespace simt
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 128;                 // q rows per CTA (2 warpgroups)
+constexpr int kBN = 128;                 // KV rows per tile
+constexpr int kThreads = 256;
+constexpr int kAtom = 128 * 128;         // bytes of 128 rows x 64 columns
+constexpr int kTile = 2 * kAtom;         // 128 rows x 128 columns, bf16
+constexpr int kSmem = kTile + 2 * 2 * kTile + 1024;   // Q, 2 x (K, V), align
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk `chunk` (0..15) of row `row` in a tile:
+// two 64-column atoms, 128 bytes a row, chunks XOR-swizzled by row % 8
+// (the 128-byte swizzle that wgmma's descriptors and TMA use)
+__device__ __forceinline__ uint32_t sw(int row, int chunk) {
+  return (chunk >> 3) * kAtom + row * 128 + (((chunk & 7) ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// order this thread's generic-proxy shared-memory accesses with wgmma's
+// (async-proxy) ones
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [0, rows_valid) of a 128-row tile, columns [0, d), as 16-byte
+// cp.async chunks; the other rows and columns are zero-filled
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long row_stride,
+                                          int rows_valid, int d) {
+#pragma unroll
+  for (int it = 0; it < kBN * 16 / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int row = i >> 4, chunk = i & 15;
+    const bool ok = row < rows_valid && chunk * 8 < d;
+    cp_async16(dst + sw(row, chunk),
+               src + (ok ? row * row_stride + chunk * 8 : 0), ok ? 16 : 0);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, the
+// leading byte offset (between 64-column atoms of an MN-major operand;
+// unused by a K-major one) and the stride byte offset (between 8-row
+// groups), all in 16-byte units
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma's issue and wait
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D64                                                          \
+  WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),       \
+      WG_D8(48), WG_D8(56)
+#define WG_R64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, f32) (+)= A (64 x 16, K-major in shared memory)
+//                       * B (16 x 128, K-major in shared memory)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers)
+//                      * B (16 x 128, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// 2^x on the SFU alone (exp2f adds a subnormal fix-up around it; a
+// probability below 2^-126 flushes to 0, far under bf16's resolution)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator layout of a wgmma m64nN (per warpgroup thread t: warp
+// w = t / 32, lane l): register i holds row 16 w + l / 4 + 8 ((i / 2) % 2),
+// column 8 (i / 4) + 2 (l % 4) + i % 2.  So each thread holds two rows
+// ("halves" r = 0, 1) and the 4 lanes of a quad share them.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o, int n_heads,
+             int n_kv_heads, int s_len, int sk_len, int d, long long qsb,
+             long long qsh, long long qss, long long ksb, long long ksh,
+             long long kss, long long vsb, long long vsh, long long vss,
+             long long osb, long long osh, long long oss, int causal,
+             float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms must start on 1024-byte boundaries
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t s_q = base, s_kv = base + kTile;   // stage: K, then V
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int m0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // heaviest first
+  const int hk = h / (n_heads / n_kv_heads);
+  const int off = sk_len - s_len;                      // causal offset
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);  // half 0's row
+
+  int n_end = sk_len;
+  if (causal) n_end = min(sk_len, min(m0 + kBM, s_len) + off);
+  const int n_tiles = (n_end + kBN - 1) / kBN;
+
+  const bf16* kb = k + b * ksb + hk * ksh;
+  const bf16* vb = v + b * vsb + hk * vsh;
+  load_tile(s_q, q + b * qsb + h * qsh + m0 * qss, qss, s_len - m0, d);
+  load_tile(s_kv, kb, kss, sk_len, d);
+  load_tile(s_kv + kTile, vb, vss, sk_len, d);
+  cp_async_commit();
+
+  float acc[64], m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t s_k = s_kv + (j & 1) * 2 * kTile, s_v = s_k + kTile;
+    if (j + 1 < n_tiles) {
+      const int n1 = (j + 1) * kBN;
+      const uint32_t nk = s_kv + ((j + 1) & 1) * 2 * kTile;
+      load_tile(nk, kb + n1 * kss, kss, sk_len - n1, d);
+      load_tile(nk + kTile, vb + n1 * vss, vss, sk_len - n1, d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T over D in steps of 16 (the padded columns are skipped)
+    // warpgroup 1 issues after warpgroup 0, so that one's softmax runs
+    // while the other's product is on the tensor cores
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    if (wg == 1) asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (kk * 16 < d) {
+        const uint32_t step = (kk >> 2) * kAtom + (kk & 3) * 32;
+        wgmma_ss(s, desc(s_q + wg * 64 * 128 + step, 16, 1024),
+                 desc(s_k + step, 16, 1024), kk > 0);
+      }
+    }
+    wgmma_commit();
+    if (wg == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    wgmma_wait();
+    fence_regs(s);
+
+    // mask (only tiles crossing Sk or this warpgroup's diagonal)
+    const int n0 = j * kBN;
+    if (n0 + kBN > sk_len ||
+        (causal && n0 + kBN - 1 > m0 + wg * 64 + off)) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int col = n0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (col >= sk_len || (causal && col > row + off)) s[i] = -INFINITY;
+      }
+    }
+
+    // online softmax on the registers; rescale the accumulator
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (((i >> 1) & 1) == r) mx = fmaxf(mx, s[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = ex2((m[r] - m_use) * scale_log2);
+      const float bias = m_use * scale_log2;
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (((i >> 1) & 1) == r) {
+          s[i] = ex2(fmaf(s[i], scale_log2, -bias));
+          sum += s[i];
+        }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (((i >> 1) & 1) == r) acc[i] *= alpha;
+    }
+
+    // O += P V: P in bf16 registers as the A operand (k = the tile's rows)
+    uint32_t p[32];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs(acc, p + 4 * kk, desc(s_v + kk * 16 * 128, kAtom, 1024));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_proxy_async();
+    __syncthreads();              // both warpgroups are done with the stage
+  }
+
+  // normalise, stage the warpgroup's 64 rows in its own Q rows, store
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = l[r] == 0.f ? 0.f : 1.f / l[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int half = (i >> 1) & 1;
+    const int row = wg * 64 + warp * 16 + (lane >> 2) + 8 * half;
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(smem + sw(row, col >> 3) + (col & 7) * 2) =
+        pack_bf16(acc[i] * l[half], acc[i + 1] * l[half]);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  bf16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int it = 0; it < 64 * 16 / 128; ++it) {
+    const int i = t + it * 128;
+    const int row = i >> 4, chunk = i & 15;
+    const int grow = m0 + wg * 64 + row;
+    if (grow < s_len && chunk * 8 < d)
+      *reinterpret_cast<uint4*>(ob + grow * oss + chunk * 8) =
+          *reinterpret_cast<const uint4*>(smem + sw(wg * 64 + row, chunk));
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int n_heads, int n_kv_heads, int s_len, int sk_len, int d,
+           const long long* st, int causal, float scale,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_heads, batch, (s_len + kBM - 1) / kBM);
+  flash_fwd_tc<<<grid, kThreads, kSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, n_heads,
+      n_kv_heads, s_len, sk_len, d, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], causal,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike).  Strides are in
-// elements: (batch, head, row) for q, k, v, then o.  Returns the CUDA
-// error of the launch (0 on success).
+// dtype: 0 float32 (the SIMT kernel), 1 bfloat16 (the tensor-core
+// kernel), for q, k, v and o alike.  Strides are in elements: (batch,
+// head, row) for q, k, v, then o.  The bf16 kernel needs d % 8 == 0 and
+// 16-byte aligned rows (the wrapper checks and names the constraint).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int n_heads, int n_kv_heads, int s_len, int sk_len, int d,
@@ -283,10 +631,15 @@ extern "C" int flash_attention_fwd(
                             vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k, v, o, batch, n_heads, n_kv_heads, s_len,
-                         sk_len, d, st, causal, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, batch, n_heads, n_kv_heads,
-                                 s_len, sk_len, d, st, causal, scale, s);
+    return simt::launch<float>(q, k, v, o, batch, n_heads, n_kv_heads,
+                               s_len, sk_len, d, st, causal, scale, s);
+  if (dtype == 1) {
+    for (long long x : st)
+      if (x % 8) return (int)cudaErrorInvalidValue;
+    if (d % 8 || (s_len + tc::kBM - 1) / tc::kBM > 65535)
+      return (int)cudaErrorInvalidValue;
+    return tc::launch(q, k, v, o, batch, n_heads, n_kv_heads, s_len, sk_len,
+                      d, st, causal, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,6 +11,13 @@ The kernel reads q, k and v through their strides (the last dimension
 must be contiguous), so a ``(B, S, H, D)`` projection viewed as
 ``(B, H, S, D)`` needs no copy; the output takes q's layout.
 
+The source holds two kernels, chosen here by dtype: bf16 (the serving
+dtype) runs on the tensor cores (wgmma, with cp.async copies of
+16-byte chunks, so its pointers and batch/head/row strides must be
+multiples of 16 bytes -- a ``ValueError`` names what is not); f32 runs
+the SIMT kernel on the f32 FMA pipes, because tensor-core operands (bf16
+or tf32) cannot meet the f32 tolerance of 5e-5.
+
 ``launches`` counts kernel launches (never plain-version calls);
 :func:`reset_launches` zeroes it.
 """
@@ -100,6 +107,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, hq, s, d = q.shape
     _, hkv, sk, _ = k.shape
     out = torch.empty_like(q)      # q's layout when dense, else contiguous
+    if q.dtype == torch.bfloat16:
+        if d % 8:
+            raise ValueError(f"flash_attention's bf16 kernel copies 16-byte "
+                             f"chunks: head_dim {d} must be a multiple of 8")
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3]):
+                raise ValueError(
+                    f"flash_attention's bf16 kernel copies 16-byte chunks: "
+                    f"{name}'s data pointer and batch/head/row strides "
+                    f"{t.stride()[:3]} must be multiples of 16 bytes")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().flash_attention_fwd(

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-BLOCK_K = 64       # KV rows per tile, as in the CUDA kernel
+BLOCK_K = 64       # KV rows per tile, as in the f32 CUDA kernel
 NEG_INF = -1e30
 
 

@@ -287,7 +287,8 @@ def test_decode_rejections():
 @pytest.mark.cuda
 def test_cuda_kernels_match_their_plain_versions():
     """Run on a card only: each Hopper kernel against its plain version
-    on the same CUDA tensors, at ragged shapes, in f32 and bf16."""
+    on the same CUDA tensors, at ragged shapes, the Jamba cut's and S off
+    the flash kernel's 128-row tiles, in f32 and bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(11)
@@ -295,7 +296,10 @@ def test_cuda_kernels_match_their_plain_versions():
         td = DTYPES[dt][1]
         for b, hq, hkv, s, sk, d, causal in [
                 (2, 32, 8, 200, 200, 128, True), (1, 4, 4, 33, 97, 64, True),
-                (3, 8, 1, 70, 70, 96, False), (1, 2, 2, 1, 5, 16, True)]:
+                (3, 8, 1, 70, 70, 96, False), (1, 2, 2, 1, 5, 16, True),
+                (2, 8, 2, 129, 255, 128, True),     # off the 128-row tiles
+                (1, 8, 1, 192, 320, 64, False),
+                (8, 64, 8, 2048, 2048, 128, True)]:  # the Jamba cut's
             q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(
                 device="cuda", dtype=td) for shape in (
                     (b, hq, s, d), (b, hkv, sk, d), (b, hkv, sk, d)))
@@ -306,7 +310,8 @@ def test_cuda_kernels_match_their_plain_versions():
             torch.cuda.synchronize()
             assert rel_err(to_np(got), to_np(want)) < tol(dt)
         for b, hq, hkv, s, d in [(8, 32, 8, 544, 128), (3, 8, 1, 70, 96),
-                                 (2, 4, 4, 5, 16)]:
+                                 (2, 4, 4, 5, 16), (8, 64, 8, 2080, 128),
+                                 (4, 16, 2, 1000, 64)]:
             q = torch.from_numpy(rng.standard_normal((b, hq, d))).to(
                 device="cuda", dtype=td)
             k, v = (torch.from_numpy(rng.standard_normal(
