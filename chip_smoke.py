@@ -9,22 +9,31 @@ of which stops the run with a non-zero exit when it fails:
 
 1. build the four kernels from ``src/`` (``zns_alloc``, flash attention,
    decode attention, ``ssm_scan``), one ``nvcc`` each, all started
-   together, and print each build time; beside them, ``ptxas -v`` of the
-   two attention sources (registers and spills of each kernel);
-2. hold the kernel to its plain PyTorch version, bit for bit, on CUDA
-   tensors at the main path's zn540 shapes and at random ragged shapes;
+   together, and print each build time; beside them, ``ptxas -v`` of all
+   four sources (registers and spills of each kernel);
+2. hold the ``zns_alloc`` kernels to their plain PyTorch versions, bit
+   for bit, on CUDA tensors: the row selection at the main path's zn540
+   shapes and at random ragged shapes, the fused ALLOC and grow
+   selections on random lane batches (both policies, cost ties, groups
+   with no feasible row, wear bound 0, hint 0, union lanes) and at the
+   zn540 grid under the 128-lane fleet's own lane table;
 3. the main path: ``paper_report(device="cuda")`` at the paper's zn540
    device, held to the reference's ``BENCH_paper.json`` (DLWA and erases
-   exactly, execution seconds at rel 1e-5), with the kernel's launch
-   count zeroed just before and read just after;
+   exactly, execution seconds at rel 1e-5), with the kernels' launch
+   counts zeroed just before and read just after; 3b. the Pallas
+   contract, ``allocator.allocate``, on the card (the row kernel);
 4. the headline's dispatches and a 128-lane zn540 fleet batch run on the
    card and on the CPU; every ``DeviceState`` / ``OpTrace`` field must be
    bit-identical;
-5. the launch count of phase 3 must be positive;
-6. timings with CUDA events: the kernel, its plain version and
-   ``torch.topk`` at the main path's shapes, one ``paper_report`` and
-   the fleet dispatch; and one headline dispatch under
-   ``torch.profiler`` for the card's busy share;
+5. phase 3 launched exactly one fused ALLOC and one fused grow selection
+   per op step of its dispatches (1184 launches), and nothing else;
+6. timings: an empty kernel through the same ctypes route (the floor of
+   any small launch), both fused selections at the zn540 grid (CUDA
+   events a call, ``torch.profiler`` device time a launch, plain
+   version, bound), the row kernel beside ``torch.topk``, one
+   ``paper_report`` and the fleet dispatch; and one headline dispatch
+   under ``torch.profiler`` for the card's busy share, its device events
+   per op step and the fused kernels' device time;
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at both serving paths' shapes (granite's and
    the Jamba cut's: S 2048, G 8), at S and Sk on, one before and one
@@ -34,7 +43,9 @@ of which stops the run with a non-zero exit when it fails:
    (``rel_err`` within the reference's ``tol(dtype)``);
 7b. hold the ``ssm_scan`` kernel to its plain version the same way: the
     Jamba cut's prefill shape with b and c as column views, T = 1, T and P
-    off every chunk and CTA width, and 12 random shapes;
+    off every chunk and CTA width, T and P one before, on and one after
+    the kernel's chunk and tile widths, odd P, ``dt * a`` = 0 and below
+    -126, and 12 random shapes;
 8. the serving path: ``repro_torch.launch.serve.main`` for granite-3-8b
    at full width and depth (8 prompts of 512 tokens, 31 greedy decode
    steps), with both launch counts zeroed just before and read just
@@ -66,7 +77,8 @@ then, with granite's model and caches freed, the Mamba path:
     tokens: every step's logits and the final KV and Mamba caches held to
     phase 8b's;
 10b. CUDA-event times at the Jamba cut's shapes -- ``ssm_scan`` beside
-     its plain version and its bound (the issue floor of its
+     its device time per launch, its plain version and its bound (the
+     issue floor of its
      exponentials and f32 instructions, with the share of exponentials
      best moved from the SFU to the f32 pipes, see :func:`scan_floor`), flash attention (S 2048, G 8) and
      decode attention (G 8) beside their plain versions and SDPA -- a
@@ -74,9 +86,10 @@ then, with granite's model and caches freed, the Mamba path:
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
-per kernel and path (``path``: ``paper_report``, granite-3-8b, the Jamba
-cut), each with that path's launches and the times at its shapes -- and
-``{"ok": true, "device": {...}}``.
+per kernel and path (``path``: ``paper_report`` for the two fused
+``zns_alloc`` selections, the Pallas contract for its row kernel,
+granite-3-8b, the Jamba cut), each with that path's launches and the
+times at its shapes -- and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -182,7 +195,72 @@ def compare_kernel(torch, ops, ref, args, take) -> float:
     return err
 
 
-def phase_kernel(torch, np, ops, ref) -> float:
+def random_lanes(torch, np, rng, L, G, W, take, ZG, P, n_zones, dev):
+    """A lane batch for the fused selections: element arrays of a
+    ``G`` x ``W`` grid plus its scratch slot, with wear spans from flat
+    (cost ties) to wide and availability from all free to all busy (no
+    feasible group); lanes mixing policies, wear-aware and first fit,
+    wear bounds 0 to unbounded, ragged (union) group counts and widths,
+    hints from 0 up; a zone column map, zones and grow counts."""
+    n = G * W + 1
+    span = rng.choice([1, 4, 60, 5000], L)
+    wear = (rng.random((L, n)) * span[:, None]).astype(np.int32)
+    p_free = rng.choice([0.0, 0.05, 0.5, 1.0], L)
+    avail = np.where(rng.random((L, n)) < p_free[:, None], rng.choice(
+        [0, 3], (L, n)), rng.choice([1, 2], (L, n))).astype(np.int32)
+    zg = rng.integers(1, ZG + 1, L)
+    ng = np.maximum(zg, rng.integers(1, G + 1, L))
+    dtake = rng.integers(1, take + 1, L)
+    lanes = np.stack([
+        np.where(rng.random(L) < 0.7, W, rng.integers(1, W + 1, L)),
+        ng, zg, rng.integers(1, dtake + 1), rng.integers(0, 2, L),
+        rng.integers(0, 2, L), rng.choice([0, 1, 3, 2**30], L),
+        rng.integers(1, 300, L), dtake, P // zg], 1).astype(np.int32)
+    programs = np.zeros((L, 5, 4), np.int32)
+    programs[:, 2, 2] = np.where(rng.random(L) < 0.3, 0,
+                                 rng.integers(1, 4000, L))
+    zone_cols = rng.integers(0, G * (P // zg.min()), (L, n_zones, P))
+    out = {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for name, a in (("wear", wear), ("avail", avail),
+                           ("lanes", lanes),
+                           ("rr", rng.integers(0, ng).astype(np.int32)),
+                           ("zone_cols", zone_cols.astype(np.int32)),
+                           ("zone", rng.integers(0, n_zones, L).astype(
+                               np.int32)),
+                           ("k", rng.integers(-2, take + 1, L).astype(
+                               np.int32)))}
+    out["hint"] = torch.from_numpy(programs).to(dev)[:, 2, 2]
+    return out
+
+
+def compare_fused(torch, ops, ref, b, dims) -> None:
+    """Both fused selections against their plain versions, every output
+    bit for bit."""
+    kw = dict(zip(("n_groups", "per_group", "take", "zone_groups"), dims))
+    before = dict(ops.counts)
+    got = ops.alloc_select(b["wear"], b["avail"], b["lanes"], b["rr"],
+                           b["hint"], **kw)
+    want = ref.alloc_select_ref(b["wear"], b["avail"], b["lanes"], b["rr"],
+                                b["hint"], **kw)
+    got_g = ops.grow_select(b["wear"], b["avail"], b["lanes"],
+                            b["zone_cols"], b["zone"], b["k"], **kw)
+    want_g = ref.grow_select_ref(b["wear"], b["avail"], b["lanes"],
+                                 b["zone_cols"], b["zone"], b["k"], **kw)
+    torch.cuda.synchronize()
+    check(ops.counts["alloc_select"] == before["alloc_select"] + 1
+          and ops.counts["grow_select"] == before["grow_select"] + 1,
+          "fused launches not counted")
+    for kind, g, w in (("alloc_select", got, want),
+                       ("grow_select", got_g, want_g)):
+        for name, a, e in zip(("win/eids", "eids/feasible", "feasible",
+                               "rr_next", "rank_lim"), g, w):
+            check(a.dtype == e.dtype and a.shape == e.shape
+                  and torch.equal(a, e),
+                  f"{kind} {name} differs from its plain version at "
+                  f"{tuple(b['wear'].shape)} dims {dims}")
+
+
+def phase_kernel(torch, np, ops, ref, engine, fleet_dyn, fleet_cfg) -> float:
     rng = np.random.default_rng(2025)
     dev = "cuda"
     err = 0.0
@@ -197,6 +275,34 @@ def phase_kernel(torch, np, ops, ref) -> float:
         err = max(err, compare_kernel(
             torch, ops, ref, random_rows(torch, rng, L, G, W, take, dev),
             take))
+    # the fused selections: random lane batches, then the zn540 grid
+    # under the 128-lane fleet's own lane table
+    fused = [(6, 4, 1056, 22, 4, 4, 48), (9, 32, 40, 7, 5, 8, 3),
+             (5, 3, 33, 33, 3, 3, 2), (4, 2, 300, 64, 2, 4, 5),
+             (FLEET_LANES, 4, 1056, 22, 4, 4, 48)]
+    for _ in range(12):
+        G = int(rng.integers(1, ops.MAX_GROUPS + 1))
+        W = int(rng.integers(1, 1100))
+        fused.append((int(rng.integers(1, 20)), G, W,
+                      int(rng.integers(1, min(W, ops.MAX_TAKE) + 1)),
+                      int(rng.integers(1, G + 1)), int(rng.integers(1, 9)),
+                      int(rng.integers(1, 40))))
+    for L, G, W, take, ZG, P, Z in fused:
+        if ops._fused_smem(G, W, take) > ops.MAX_SMEM:
+            continue
+        compare_fused(torch, ops, ref, random_lanes(
+            torch, np, rng, L, G, W, take, ZG, max(P, ZG), Z, dev),
+            (G, W, take, ZG))
+    ln = engine._lanes(fleet_cfg, engine._lane_dyn(
+        fleet_cfg, fleet_dyn, FLEET_LANES, torch.device(dev)))
+    zn540 = random_lanes(torch, np, rng, FLEET_LANES, fleet_cfg.n_groups,
+                         fleet_cfg.per_group, fleet_cfg.take,
+                         fleet_cfg.zone_groups, fleet_cfg.parallelism,
+                         fleet_cfg.n_zones, dev)
+    zn540["lanes"] = ln.sel
+    compare_fused(torch, ops, ref, zn540, (
+        fleet_cfg.n_groups, fleet_cfg.per_group, fleet_cfg.take,
+        fleet_cfg.zone_groups))
     # the Pallas contract on the card
     for G, W, take in [(4, 1056, 22), (3, 33, 5), (16, 256, 8)]:
         wear, avail, elig = random_rows(torch, rng, 1, G, W, take, dev)[:3]
@@ -207,8 +313,11 @@ def phase_kernel(torch, np, ops, ref) -> float:
         want = bool(((ok >= take) | (elig[0] == 0)).all())
         check(torch.equal(sel, s_ref.bool()) and bool(feasible) == want,
               f"zns_alloc contract differs at {(G, W, take)}")
-    log(f"phase 2: kernel == plain version, bit for bit (tolerance 0), "
-        f"on {len(shapes)} shapes (max_abs_err {err})")
+    log(f"phase 2: zns_alloc kernels == plain versions, bit for bit "
+        f"(tolerance 0): the row selection on {len(shapes)} shapes, the "
+        f"fused ALLOC and grow selections on {len(fused) + 1} lane batches "
+        f"(the last the zn540 grid under the fleet's lane table), the "
+        f"Pallas contract on 3 (max_abs_err {err})")
     return err
 
 
@@ -290,6 +399,8 @@ def cuda_ms(torch, fn, iters: int = 50) -> float:
 
 
 def kernel_timing(torch, np, ops, ref, L, G, W, take) -> dict:
+    """The row selection (the Pallas contract's kernel) at a zn540 grid:
+    the kernel, its plain version and ``torch.topk`` of the same keys."""
     rng = np.random.default_rng(L * 7 + W)
     args = random_rows(torch, rng, L, G, W, take, "cuda")
     args[3].fill_(1)                           # the wear-aware key
@@ -297,9 +408,11 @@ def kernel_timing(torch, np, ops, ref, L, G, W, take) -> dict:
     key = ((args[0].long() << 32) | torch.arange(W, device="cuda")).where(
         ((args[1] == 0) | (args[1] == 3)) & (args[2] != 0)[..., None],
         (1 << 62) | torch.arange(W, device="cuda")).reshape(L * G, W)
-    before = ops.launches
+    before = dict(ops.counts)
     ms = cuda_ms(torch, lambda: ops.zns_alloc_rows(*args, take=take))
-    ops.launches = before                      # timing launches not counted
+    dev_us = device_us(torch, lambda: ops.zns_alloc_rows(*args, take=take),
+                       "rows_kernel", reps=50)
+    ops.counts.update(before)                  # timing launches not counted
     plain_ms = cuda_ms(torch, lambda: ref.zns_alloc_rows_ref(*args,
                                                              take=take))
     library_ms = cuda_ms(torch, lambda: torch.topk(key, take, dim=1,
@@ -309,15 +422,110 @@ def kernel_timing(torch, np, ops, ref, L, G, W, take) -> dict:
     # each input read once, each output written once
     bytes_moved = (2 * 4 * rows * W + 4 * rows + 3 * 4 * L
                    + 4 * rows * take + 4 * rows + 4 * rows)
-    # take rounds of a 64-bit min over every column, counted as two
-    # 32-bit operations per compare
-    ops_done = 2 * take * rows * W
+    # one key build and one compare per column and selection, whatever
+    # the design
+    return dict(bound(bytes_moved, 2 * rows * W), shape=[L, G, W],
+                take=take, ms=ms, device_us=dev_us, plain_ms=plain_ms,
+                library_ms=library_ms)
+
+
+def bound(bytes_moved: int, ops_done: int) -> dict:
+    """The least time for ``bytes_moved`` at the memory rate and
+    ``ops_done`` 32-bit operations at the f32/int32 rate."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_done / OPS_PER_S * 1e3
-    return {"shape": [L, G, W], "take": take, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_moved, "ops": ops_done}
+
+
+def fused_timing(torch, np, ops, ref, engine, eng, dyn, seed) -> dict:
+    """Both fused selections at the zn540 grid under the lane table of
+    ``dyn`` (one lane each): the kernel's time a call (CUDA events over
+    back-to-back calls) and a launch (``torch.profiler``), the plain
+    version's, and the bound from these inputs.  No PyTorch call computes
+    either selection, so there is no library time."""
+    cfg = eng.cfg
+    L = dyn.zone_pages.shape[0]
+    rng = np.random.default_rng(seed)
+    b = random_lanes(torch, np, rng, L, cfg.n_groups, cfg.per_group,
+                     cfg.take, cfg.zone_groups, cfg.parallelism,
+                     cfg.n_zones, "cuda")
+    # a worn device with most elements free, as mid-run
+    b["wear"] = torch.from_numpy(rng.integers(0, 8, tuple(
+        b["wear"].shape)).astype(np.int32)).cuda()
+    b["avail"] = torch.from_numpy(np.where(rng.random(tuple(
+        b["avail"].shape)) < 0.7, 0, 1).astype(np.int32)).cuda()
+    b["lanes"] = engine._lanes(cfg, engine._lane_dyn(
+        cfg, dyn, L, torch.device("cuda"))).sel
+    # every zone on the lane's first zone_groups groups, its column c on
+    # LUN c, as ALLOC writes the map
+    b["zone_cols"] = torch.arange(
+        cfg.parallelism, dtype=torch.int32, device="cuda").expand(
+        L, cfg.n_zones, cfg.parallelism).contiguous()
+    b["k"].fill_(cfg.take)
+    kw = dict(n_groups=cfg.n_groups, per_group=cfg.per_group,
+              take=cfg.take, zone_groups=cfg.zone_groups)
+    calls = {
+        "alloc_select": (
+            lambda: ops.alloc_select(b["wear"], b["avail"], b["lanes"],
+                                     b["rr"], b["hint"], **kw),
+            lambda: ref.alloc_select_ref(b["wear"], b["avail"], b["lanes"],
+                                         b["rr"], b["hint"], **kw)),
+        "grow_select": (
+            lambda: ops.grow_select(b["wear"], b["avail"], b["lanes"],
+                                    b["zone_cols"], b["zone"], b["k"], **kw),
+            lambda: ref.grow_select_ref(b["wear"], b["avail"], b["lanes"],
+                                        b["zone_cols"], b["zone"], b["k"],
+                                        **kw))}
+    # the rows this run's lanes select: a silent lane ranks every group
+    # once; a traditional lane selects its window, and every group again
+    # when the window fails; a grow selects the zone's groups
+    f = dict(zip(ref.LANE_FIELDS, b["lanes"].cpu().numpy().T))
+    w2, a2 = ref._grids(b["wear"], b["avail"], cfg.n_groups, cfg.per_group)
+    rr_rows = 0
+    for lane in range(L):
+        if f["silent"][lane]:
+            continue
+        g = [(int(b["rr"][lane]) + p) % f["n_groups"][lane]
+             for p in range(f["zone_groups"][lane])]
+        free = ((a2[lane, g] == 0) | (a2[lane, g] == 3))[
+            :, :f["per_group"][lane]].sum(1)
+        rr_rows += len(g) + cfg.n_groups * int(
+            bool((free < f["take_eff"][lane]).any()))
+    rows = {"alloc_select": rr_rows + cfg.n_groups * int(
+        f["silent"].sum()), "grow_select": int(f["zone_groups"].sum())}
+    grid = 2 * 4 * cfg.n_groups * cfg.per_group
+    outs = {"alloc_select": 4 * cfg.zone_groups * (cfg.take + 1) + 4 * 2 + 1,
+            "grow_select": 4 * cfg.zone_groups * cfg.take + 1}
+    names = {"alloc_select": "alloc_select_kernel",
+             "grow_select": "grow_select_kernel"}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        before = dict(ops.counts)
+        ms = cuda_ms(torch, kernel)
+        dev_us = device_us(torch, kernel, names[name], reps=50)
+        ops.counts.update(before)
+        plain_ms = cuda_ms(torch, plain, iters=10)
+        # each lane's grid read once (wear and availability), its table
+        # row, window start and hint (or zone map row, zone and count),
+        # the outputs written once
+        bytes_moved = L * (grid + 4 * len(ref.LANE_FIELDS) + 8
+                           + outs[name]) + (
+            L * 4 * cfg.parallelism if name == "grow_select" else 0)
+        out[name] = dict(bound(bytes_moved, 2 * rows[name] * cfg.per_group),
+                         ms=ms, device_us=dev_us, plain_ms=plain_ms,
+                         library_ms=None, lanes=L, rows=rows[name])
+    return out
+
+
+def empty_timing(torch, ops) -> dict:
+    """An empty kernel through the same ctypes route: the host's time a
+    call (back-to-back, CUDA events) and the device's a launch -- the
+    practical floor of any small kernel here."""
+    ms = cuda_ms(torch, ops.empty_launch, iters=200)
+    dev_us = device_us(torch, ops.empty_launch, "empty_kernel", reps=200)
+    return {"ms": ms, "device_us": dev_us}
 
 
 def profile_dispatch(torch, eng, programs, dyn) -> dict:
@@ -338,11 +546,13 @@ def profile_dispatch(torch, eng, programs, dyn) -> dict:
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in device)
-    kern = [e.time_range.elapsed_us() for e in device
-            if "zns_alloc" in e.name]
-    return {"wall_us": wall_us, "busy_us": busy_us,
-            "device_events": len(device), "kernel_launches": len(kern),
-            "kernel_us": sum(kern) / len(kern) if kern else None}
+    out = {"wall_us": wall_us, "busy_us": busy_us,
+           "device_events": len(device)}
+    for name in ("alloc_select_kernel", "grow_select_kernel"):
+        kern = [e.time_range.elapsed_us() for e in device
+                if name in e.name]
+        out[name] = (len(kern), sum(kern) / len(kern) if kern else None)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -469,12 +679,14 @@ def phase_attention(torch, np, fops, fref, dops, dref) -> dict:
 # --------------------------------------------------------------------- #
 # phase 7b: the selective scan vs its plain version
 # --------------------------------------------------------------------- #
-def ssm_inputs(torch, gen, bh, t, p, n, dtype, *, rank=0, model_a=False):
+def ssm_inputs(torch, gen, bh, t, p, n, dtype, *, rank=0, model_a=False,
+               scale_a=1.0):
     """x ~ N(0, 1), dt a softplus of N(0, 1) (as the Mamba layer makes
     it), b and c ~ N(0, 1) -- column views of one ``(BH, T, rank + 2N)``
     tensor when ``rank`` > 0, as ``x_proj``'s output is sliced -- a the
-    Mamba init's ``-(1..N)`` per channel or random in [-16.1, -0.1), d
-    ~ N(0, 1)."""
+    Mamba init's ``-(1..N)`` per channel or random in [-16.1, -0.1),
+    times ``scale_a`` (0 makes dt * a = 0; 100 puts most of it below
+    -126), d ~ N(0, 1)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     x = randn(bh, t, p).to(dtype)
@@ -489,20 +701,32 @@ def ssm_inputs(torch, gen, bh, t, p, n, dtype, *, rank=0, model_a=False):
                           device="cuda").repeat(p, 1)
     else:
         a = -(torch.rand((p, n), generator=gen, device="cuda") * 16 + 0.1)
-    return x, dt, b, c, a, randn(p)
+    return x, dt, b, c, a * scale_a, randn(p)
 
 
-def ssm_cases(rng) -> list:
-    """(bh, t, p, n, rank, model_a): the Jamba cut's prefill scan (b and
-    c as views of the 544-column ``x_proj`` output), T = 1, T and P off
-    every chunk and the 128-channel CTA, then 12 random shapes."""
-    cases = [(8, 2048, 16384, 16, 512, True), (2, 1, 300, 16, 0, False),
-             (3, 777, 1000, 16, 7, False), (2, 130, 200, 8, 0, True)]
+def ssm_cases(rng, tile: int, chunk: int) -> list:
+    """(bh, t, p, n, rank, model_a, scale_a): the Jamba cut's prefill
+    scan (b and c as views of the 544-column ``x_proj`` output), T = 1,
+    T and P off every chunk and CTA width; T one before, on and one after
+    the kernel's ``chunk`` steps and twice it, P likewise about its
+    ``tile`` channels and odd (unaligned rows, the plain-load path);
+    ``dt * a`` = 0 and ``dt * a`` < -126; then 12 random shapes."""
+    cases = [(8, 2048, 16384, 16, 512, True, 1.0),
+             (2, 1, 300, 16, 0, False, 1.0),
+             (3, 777, 1000, 16, 7, False, 1.0),
+             (2, 130, 200, 8, 0, True, 1.0)]
+    for t in (chunk - 1, chunk, chunk + 1, 2 * chunk + 1):
+        cases.append((2, t, 3 * tile, 16, 512, False, 1.0))
+    for p in (tile - 1, tile, tile + 1, 2 * tile + 3, 1001):
+        cases.append((2, 2 * chunk + 5, p, 16, 0, True, 1.0))
+    cases += [(2, 50, 2 * tile, 16, 512, False, 0.0),
+              (2, 50, 2 * tile, 16, 512, False, 100.0),
+              (1, 40, tile + 3, 5, 3, False, 100.0)]
     for i in range(12):
         cases.append((int(rng.integers(1, 7)), int(rng.integers(1, 700)),
                       int(rng.integers(1, 2000)), int(rng.integers(1, 17)),
                       int(rng.integers(0, 2)) * int(rng.integers(1, 40)),
-                      bool(i % 2)))
+                      bool(i % 2), 1.0))
     return cases
 
 
@@ -512,12 +736,12 @@ def phase_ssm(torch, np, sops, sref) -> float:
     rng = np.random.default_rng(13)
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst, n_cases = 0.0, 0
-    cases = ssm_cases(rng)
+    cases = ssm_cases(rng, sops.TILE, sops.CHUNK)
     for dtype in (torch.float32, torch.bfloat16):
         tol = KERNEL_TOL[str(dtype).split(".")[1]]
-        for bh, t, p, n, rank, model_a in cases:
+        for bh, t, p, n, rank, model_a, scale_a in cases:
             args = ssm_inputs(torch, gen, bh, t, p, n, dtype, rank=rank,
-                              model_a=model_a)
+                              model_a=model_a, scale_a=scale_a)
             before = sops.launches
             got = sops.ssm_scan(*args)
             check(sops.launches == before + 1, "ssm_scan launch not counted")
@@ -526,8 +750,8 @@ def phase_ssm(torch, np, sops, sref) -> float:
             err, diff = rel_err(torch, got, want)
             check(got.dtype == dtype and tuple(got.shape) == (bh, t, p)
                   and err <= tol,
-                  f"ssm_scan {dtype} {(bh, t, p, n)} rank {rank}: rel err "
-                  f"{err} > {tol}")
+                  f"ssm_scan {dtype} {(bh, t, p, n)} rank {rank} a x "
+                  f"{scale_a}: rel err {err} > {tol}")
             worst = max(worst, diff)
             n_cases += 1
             del args, got, want
@@ -764,6 +988,8 @@ def ssm_timing(torch, sops, sref) -> dict:
                       model_a=True)
     before = sops.launches
     ms = cuda_ms(torch, lambda: sops.ssm_scan(*args), iters=20)
+    dev_us = device_us(torch, lambda: sops.ssm_scan(*args),
+                       "ssm_scan_kernel", reps=30)
     sops.launches = before                     # timing launches not counted
     plain_ms = cuda_ms(torch, lambda: sref.ssm_scan_ref(*args), iters=2)
     # each input read once and y written once: x, dt, y (BH, T, P) bf16;
@@ -776,7 +1002,8 @@ def ssm_timing(torch, sops, sref) -> dict:
     del args
     floor = scan_floor(exps, instr)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    return dict(floor, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(floor, ms=ms, device_us=dev_us, plain_ms=plain_ms,
+                library_ms=None,
                 bound_ms=max(bytes_ms, floor["ops_ms"]),
                 bound_by=("bytes" if bytes_ms >= floor["ops_ms"]
                           else "operations"),
@@ -818,9 +1045,12 @@ def device_us(torch, fn, name: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.name]
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range.elapsed_us() for e in device if name in e.name]
+    if not spans:
+        log(f"device_us: no device event named {name!r} among "
+            f"{sorted({e.name[:80] for e in device})[:8]}")
     return sum(spans) / len(spans) if spans else None
 
 
@@ -926,7 +1156,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs.jamba15_large_398b import ONE_CHIP
-    from repro_torch.core import engine, headline, workloads
+    from repro_torch.core import allocator, engine, headline, workloads
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
@@ -943,22 +1173,28 @@ def main() -> int:
     log(f"device: {card} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, cuda {torch.version.cuda}")
 
-    # 1. build: one nvcc per source, all started together
+    # 1. build: one nvcc per source, all started together, and ptxas -v
+    # of every source beside them
     def timed_build(source):
         t0 = time.perf_counter()
         return _build.build(source), time.perf_counter() - t0
-    sources = (ops.SOURCE, fops.SOURCE, dops.SOURCE, sops.SOURCE)
-    with ThreadPoolExecutor(len(sources) + 2) as pool:
-        usage = pool.map(_build.resource_usage, (fops.SOURCE, dops.SOURCE))
-        for lib, secs in pool.map(timed_build, sources):
+    sources = {"zns_alloc": ops.SOURCE, "flash_attention": fops.SOURCE,
+               "decode_attention": dops.SOURCE, "ssm_scan": sops.SOURCE}
+    with ThreadPoolExecutor(2 * len(sources)) as pool:
+        usage = pool.map(_build.resource_usage, sources.values())
+        for lib, secs in pool.map(timed_build, sources.values()):
             log(f"phase 1: built {lib.name} in {secs:.2f} s")
-        usage = dict(zip(("flash_attention", "decode_attention"), usage))
+        usage = dict(zip(sources, usage))
     for name, kernels_of in usage.items():
         for mangled, u in kernels_of.items():
             log(f"phase 1: ptxas {name} {mangled}: {u}")
 
-    # 2. kernel vs plain version
-    max_abs_err = phase_kernel(torch, np, ops, ref)
+    # 2. the kernels vs their plain versions
+    gpu_eng = headline.build_headline_engine(device="cuda")
+    cpu_eng = headline.build_headline_engine(device="cpu")
+    fleet_progs, fleet_dyn = fleet_batch(headline, engine, gpu_eng)
+    max_abs_err = phase_kernel(torch, np, ops, ref, engine, fleet_dyn,
+                               gpu_eng.cfg)
 
     # 3. the main path
     bench = json.loads((ROOT / "BENCH_paper.json").read_text())
@@ -968,7 +1204,8 @@ def main() -> int:
     rep = headline.paper_report(device="cuda")
     torch.cuda.synchronize()
     report_s = time.perf_counter() - t0
-    launches = ops.launches
+    zns_counts = dict(ops.counts)
+    launches = sum(zns_counts.values())
     check_report(rep, bench)
     log(f"phase 3: paper_report on cuda == BENCH_paper.json "
         f"(DLWA {rep['dlwa']['traditional_dlwa'][0]} -> "
@@ -979,16 +1216,27 @@ def main() -> int:
     check(sum(rep["launches"]["zns_alloc_per_pass"]) == launches,
           "paper_report's per-pass launch counts disagree with the "
           "wrapper's counter")
+    # 3b. the Pallas contract (core/allocator.allocate) on the card: the
+    # row selection kernel
+    ops.reset_launches()
+    sel, feasible = allocator.allocate(
+        np.arange(4 * 1056, dtype=np.int32).reshape(4, 1056) % 97,
+        np.zeros((4, 1056), np.int32), np.ones(4, bool), 22,
+        device="cuda")
+    contract_counts = dict(ops.counts)
+    check(bool(feasible) and sel.sum() == 4 * 22
+          and contract_counts["rows"] == 1,
+          f"allocator.allocate on cuda: feasible {feasible}, "
+          f"{sel.sum()} picks, launches {contract_counts}")
+    log(f"phase 3b: allocator.allocate (the Pallas contract) on cuda: "
+        f"{int(sel.sum())} picks, launches {contract_counts}")
 
     # 4. the same dispatches and the fleet batch, cuda vs cpu
-    gpu_eng = headline.build_headline_engine(device="cuda")
-    cpu_eng = headline.build_headline_engine(device="cpu")
-    for name, programs, dyn in headline_batches(headline, workloads,
-                                                gpu_eng):
+    batches = headline_batches(headline, workloads, gpu_eng)
+    for name, programs, dyn in batches:
         assert_same_run(torch, name, gpu_eng.run_batch(
             gpu_eng.init_state(), programs, dyn), cpu_eng.run_batch(
             cpu_eng.init_state(), programs, dyn))
-    fleet_progs, fleet_dyn = fleet_batch(headline, engine, gpu_eng)
     gpu_eng.run_batch(gpu_eng.init_state(), fleet_progs, fleet_dyn)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1007,18 +1255,44 @@ def main() -> int:
         f"({fleet_progs.shape[1]} ops/lane, {n_ok}/{n_ops} ok) "
         f"bit-identical on cuda and cpu")
 
-    # 5. the main path went through the kernel
-    check(launches > 0, "paper_report launched the zns_alloc kernel "
-          "no time")
+    # 5. the main path went through the kernels: one ALLOC and one grow
+    # selection per op step of each dispatch, both passes
+    steps = 2 * sum(programs.shape[1] for _, programs, _ in batches)
+    check(zns_counts == {"alloc_select": steps, "grow_select": steps,
+                         "rows": 0} and launches == 2 * steps,
+          f"paper_report launched {zns_counts}, want {steps} each of "
+          f"alloc_select and grow_select over {steps} op steps")
     log(f"phase 5: zns_alloc launches in paper_report: {launches} "
-        f"({rep['launches']['zns_alloc_per_pass']} per pass)")
+        f"({rep['launches']['zns_alloc_per_pass']} per pass; "
+        f"{zns_counts}) "
+        f"over {steps} op steps: 2 per op step, as expected")
 
     # 6. timing
+    empty = empty_timing(torch, ops)
+    log(f"phase 6: empty kernel through the same ctypes route (the "
+        f"practical floor of a small kernel here): {empty['ms']:.6f} ms "
+        f"a call back to back, {empty['device_us']} us device time a "
+        f"launch")
+    fused = {name: fused_timing(torch, np, ops, ref, engine, gpu_eng, d,
+                                seed=len(name))
+             for name, _, d in batches[1:2]}
+    fused["fleet"] = fused_timing(torch, np, ops, ref, engine, gpu_eng,
+                                  fleet_dyn, seed=7)
+    for where, entry in fused.items():
+        for kname, t in entry.items():
+            log(f"phase 6: zns_alloc {kname} at zn540, {t['lanes']} lanes "
+                f"({where}'s lane table, {t['rows']} row selections): "
+                f"kernel {t['ms']:.6f} ms a call, device {t['device_us']} "
+                f"us a launch (empty kernel {empty['ms']:.6f} ms, "
+                f"{empty['device_us']} us), plain {t['plain_ms']:.6f} ms, "
+                f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+                f"{t['bytes']} bytes, {t['ops']} operations)")
     timings = [kernel_timing(torch, np, ops, ref, *shape) for shape in (
         (2, 4, 1056, 22), (12, 4, 1056, 22), (FLEET_LANES, 4, 1056, 22))]
     for t in timings:
-        log(f"phase 6: zns_alloc {t['shape']} take {t['take']}: kernel "
-            f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, torch.topk "
+        log(f"phase 6: zns_alloc rows {t['shape']} take {t['take']}: "
+            f"kernel {t['ms']:.6f} ms a call, device {t['device_us']} us "
+            f"a launch, plain {t['plain_ms']:.6f} ms, torch.topk "
             f"{t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']})")
     torch.cuda.synchronize()
@@ -1031,17 +1305,18 @@ def main() -> int:
     log(f"phase 6: {FLEET_LANES}-lane fleet dispatch: {fleet_s:.3f} s on "
         f"cuda = {n_ops / fleet_s:.1f} lane-ops/s "
         f"(cpu twin {cpu_fleet_s:.3f} s)")
-    name, programs, dyn = headline_batches(headline, workloads,
-                                           gpu_eng)[1]
+    name, programs, dyn = batches[1]
     prof = profile_dispatch(torch, gpu_eng, programs, dyn)
     if prof["device_events"]:
         log(f"phase 6: profiled {name} dispatch ({programs.shape[0]} x "
             f"{programs.shape[1]} ops): wall {prof['wall_us']:.1f} us, "
             f"device busy {prof['busy_us']:.1f} us "
             f"({prof['busy_us'] / prof['wall_us']:.4f} of wall) over "
-            f"{prof['device_events']} device events; zns_alloc "
-            f"{prof['kernel_launches']} launches, {prof['kernel_us']} us "
-            f"device time each")
+            f"{prof['device_events']} device events = "
+            f"{prof['device_events'] / programs.shape[1]:.1f} per op step; "
+            f"alloc_select (launches, us each) "
+            f"{prof['alloc_select_kernel']}, grow_select "
+            f"{prof['grow_select_kernel']}")
     else:
         log("phase 6: profiler recorded no device events: device busy "
             "share not measured")
@@ -1079,7 +1354,9 @@ def main() -> int:
     # 10b. timing
     ssm_t = ssm_timing(torch, sops, sref)
     log(f"phase 10b: ssm_scan at the slice's shape (8 x 2048 x 16384, N "
-        f"16, bf16): kernel {ssm_t['ms']:.6f} ms, plain "
+        f"16, bf16): kernel {ssm_t['ms']:.6f} ms (device "
+        f"{ssm_t['device_us']} us a launch; "
+        f"{ssm_t['bound_ms'] / ssm_t['ms']:.4f} of its bound), plain "
         f"{ssm_t['plain_ms']:.6f} ms, no library call; bound "
         f"{ssm_t['bound_ms']:.6f} ms ({ssm_t['bound_by']}: {ssm_t['exps']} "
         f"exponentials and {ssm_t['instr']} other f32 instructions, "
@@ -1125,20 +1402,36 @@ def main() -> int:
         "library_ms": timed[name]["library_ms"],
     } for path, counts, timed in paths for name in timed]
     log(gpu_name_and_limit())
-    log(json.dumps({"kernels": [{
-        "name": "zns_alloc",
+    zns = "src/repro_torch/kernels/zns_alloc/csrc/zns_alloc.cu"
+    zns_entries = [{
+        "name": f"zns_alloc/{kname}",
         "path": "paper_report",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/zns_alloc/csrc/zns_alloc.cu",
+        "source": zns,
         "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
-        "launches": launches,
+        "launches": zns_counts[kname],
+        "max_abs_err": max_abs_err,
+        "ms": fused["wear"][kname]["ms"],
+        "plain_ms": fused["wear"][kname]["plain_ms"],
+        "bound_ms": fused["wear"][kname]["bound_ms"],
+        "bound_by": fused["wear"][kname]["bound_by"],
+        "library_ms": None,
+    } for kname in ("alloc_select", "grow_select")]
+    zns_entries.append({
+        "name": "zns_alloc/rows",
+        "path": "allocator.allocate (the Pallas contract)",
+        "route": "cuda",
+        "source": zns,
+        "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
+        "launches": contract_counts["rows"],
         "max_abs_err": max_abs_err,
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
-    }] + serve_entries}))
+    })
+    log(json.dumps({"kernels": zns_entries + serve_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -17,10 +17,11 @@ How the JAX engine maps onto tensors:
   with ``torch.where`` per lane (traditional vs silent, the round-robin
   window vs the cheapest-groups fallback, the grow branch, the
   EMPTY-triggered ALLOC inside WRITE, the op switch).
-* The per-group lowest-``(wear, col)`` selection (``_take_lowest`` /
-  ``_cheapest_groups``, ``lax.top_k`` in JAX) is the ``zns_alloc``
-  kernel: the Hopper kernel on a CUDA device, its plain version on the
-  CPU (:mod:`repro_torch.kernels.zns_alloc`).
+* ALLOC's whole selection (the JAX engine's ``_rr_mask`` /
+  ``_take_lowest`` / ``_wear_bounded_avail`` / ``_cheapest_groups`` with
+  ``lax.top_k``, and the claimed element ids) and the silent grow's are
+  one ``zns_alloc`` launch each: the Hopper kernel on a CUDA device, its
+  plain version on the CPU (:mod:`repro_torch.kernels.zns_alloc`).
 * Scatters whose indices may repeat keep the update at the highest
   flat position, as XLA's sequential scatter does (the silent-policy
   slot collision of ``docs/CHECKING.md`` depends on it); adds
@@ -561,17 +562,30 @@ class _Lanes(NamedTuple):
 
     dyn: DynConfig
     ids: torch.Tensor         # lane ids, int64
-    ng: torch.Tensor          # effective group count
     n_slots_eff: torch.Tensor
-    take_eff: torch.Tensor    # ranks a full-capacity claim commits
-    per_rank: torch.Tensor    # pages per claimed rank, at least 1
-    lpg: torch.Tensor         # LUN columns per element
     erase_blocks: torch.Tensor  # blocks erased per invalid element
     slot_map: torch.Tensor    # (L, n_segments, P) slot of each block cell
-    grid_ok: torch.Tensor     # (L, n_groups, per_group) bool: not padding
-    silent: torch.Tensor      # bool
-    wear_aware: torch.Tensor  # int32 0/1
-    ones: torch.Tensor        # int32 1s
+    silent: torch.Tensor      # bool (``sel`` holds it as 0/1)
+    sel: torch.Tensor         # (L, len(LANE_FIELDS)) the selections' table
+
+    # the other per-lane constants are columns of ``sel`` (views)
+    @property
+    def take_eff(self) -> torch.Tensor:
+        """Ranks a full-capacity claim commits."""
+        return self.sel[:, _FIELD["take_eff"]]
+
+    @property
+    def per_rank(self) -> torch.Tensor:
+        """Pages per claimed rank, at least 1."""
+        return self.sel[:, _FIELD["per_rank"]]
+
+    @property
+    def lpg(self) -> torch.Tensor:
+        """LUN columns per element."""
+        return self.sel[:, _FIELD["lpg"]]
+
+
+_FIELD = {name: i for i, name in enumerate(zns_ops.LANE_FIELDS)}
 
 
 def _fdiv(a, b):
@@ -594,27 +608,25 @@ def _lanes(cfg: EngineConfig, dyn: DynConfig) -> _Lanes:
     lpg = _fdiv(torch.full_like(dyn.zone_groups, cfg.parallelism),
                 dyn.zone_groups)
     seg_span = _fdiv(dyn.pages_per_element, lpg * cfg.pages_per_block)
-    grow = torch.arange(cfg.n_groups, dtype=I32, device=dev)[:, None]
-    col = torch.arange(cfg.per_group, dtype=I32, device=dev)[None, :]
+    per_rank = torch.clamp(dyn.pages_per_element * dyn.zone_groups, min=1)
+    silent = dyn.alloc_policy == POLICY_SILENT
+    table = dict(per_group=dyn.per_group, n_groups=ng,
+                 zone_groups=dyn.zone_groups, take_eff=take_eff,
+                 wear_aware=dyn.wear_aware, silent=silent,
+                 wear_bound=dyn.wear_bound, per_rank=per_rank,
+                 take=dyn.take, lpg=lpg)
     return _Lanes(
         dyn=dyn,
         ids=torch.arange(L, device=dev),
-        ng=ng,
         n_slots_eff=n_slots_eff,
-        take_eff=take_eff,
-        per_rank=torch.clamp(dyn.pages_per_element * dyn.zone_groups,
-                             min=1),
-        lpg=lpg,
         erase_blocks=_fdiv(dyn.pages_per_element,
                            torch.full_like(dyn.zone_groups,
                                            cfg.pages_per_block)),
         slot_map=zns.slot_map_t(dyn.slot_stride, lpg, seg_span,
                                 cfg.parallelism, cfg.n_segments),
-        grid_ok=((grow < ng[:, None, None])
-                 & (col < dyn.per_group[:, None, None])),
-        silent=dyn.alloc_policy == POLICY_SILENT,
-        wear_aware=dyn.wear_aware.to(I32),
-        ones=torch.ones(L, dtype=I32, device=dev),
+        silent=silent,
+        sel=torch.stack([table[name].to(I32) for name in
+                         zns_ops.LANE_FIELDS], 1).contiguous(),
     )
 
 
@@ -681,18 +693,6 @@ def _scatter_add(t: torch.Tensor, idx: torch.Tensor, val: torch.Tensor
     return torch.scatter_add(t, 1, idx.long(), val.to(t.dtype))
 
 
-def _first_groups(elig: torch.Tensor, k: int) -> torch.Tensor:
-    """``jnp.nonzero(elig, size=k, fill_value=0)`` per lane: the first
-    ``k`` eligible group ids ascending, 0-filled -- from a running count
-    instead of a sort."""
-    L, G = elig.shape
-    pos = torch.cumsum(elig.to(I32), 1, dtype=I32) - 1
-    slot = torch.where(elig & (pos < k), pos, k).long()
-    g = torch.arange(G, dtype=I32, device=elig.device).expand(L, G)
-    out = torch.zeros((L, k + 1), dtype=I32, device=elig.device)
-    return out.scatter(1, slot, g)[:, :k]
-
-
 def _written_per_slot(cfg: EngineConfig, ln: _Lanes, wp: torch.Tensor
                       ) -> torch.Tensor:
     """Pages written per element slot at zone pointer ``wp`` (L,): every
@@ -706,88 +706,6 @@ def _written_per_slot(cfg: EngineConfig, ln: _Lanes, wp: torch.Tensor
     slot = torch.where((slot >= 0) & (slot < cfg.n_slots), slot,
                        cfg.n_slots)
     return _scatter_add(out, slot, blk.reshape(L, -1))[:, :cfg.n_slots]
-
-
-# ----------------------------------------------------------------------- #
-# selection (the zns_alloc kernel) and the masks around it
-# ----------------------------------------------------------------------- #
-def _rr_mask(cfg: EngineConfig, ln: _Lanes, start: torch.Tensor
-             ) -> torch.Tensor:
-    """Round-robin eligibility window (L, n_groups): ``dyn.zone_groups``
-    consecutive groups (mod the lane's effective group count) starting
-    at ``start``; window positions past ``dyn.zone_groups`` select
-    nothing."""
-    dev = start.device
-    pos = torch.arange(cfg.zone_groups, dtype=I32, device=dev)
-    idx = torch.where(pos < ln.dyn.zone_groups[:, None],
-                      torch.remainder(start[:, None] + pos, ln.ng[:, None]),
-                      cfg.n_groups)
-    g = torch.arange(cfg.n_groups, dtype=I32, device=dev)
-    return (idx[:, :, None] == g).any(1)
-
-
-def _take_lowest(cfg: EngineConfig, ln: _Lanes, w2, a2, eligible, by_wear,
-                 take_eff):
-    """Per-eligible-group ``cfg.take`` lowest-(wear, col) available
-    elements, through the ``zns_alloc`` kernel.  ``by_wear`` (L,) int32
-    0/1 selects the wear-oblivious first-fit when 0 (key = column).
-    ``take_eff`` (L,) is how many of them the zone will claim:
-    feasibility needs that many per eligible group.  Columns past
-    ``dyn.per_group`` are union-grid padding, never free.
-
-    Returns (cols (L, n_groups, take) ordered by (wear, col), non-free
-    filler last in ascending column order; feasible (L,); cost
-    (L, n_groups) f32 -- the first ``take_eff`` picks' summed wear, +inf
-    where a row has fewer free elements)."""
-    cols, ok, cost, _ = zns_ops.zns_alloc_rows(
-        w2, a2, eligible.to(I32), by_wear, take_eff.to(I32),
-        ln.dyn.per_group, take=cfg.take)
-    feasible = ((ok >= take_eff[:, None]) | ~eligible).all(1)
-    return cols, feasible, cost
-
-
-def _cheapest_groups(cfg: EngineConfig, ln: _Lanes, w2, a2, take_eff
-                     ) -> torch.Tensor:
-    """(L, n_groups) mask of the ``dyn.zone_groups`` groups whose
-    ``take_eff`` cheapest free elements cost least, ties to the lower
-    group (a stable rank, counted pairwise instead of sorted)."""
-    rows = ln.grid_ok[:, :, 0]               # groups below the lane's ng
-    _, _, cost = _take_lowest(cfg, ln, w2, a2, rows, ln.ones, take_eff)
-    g = torch.arange(cfg.n_groups, device=w2.device)
-    before = ((cost[:, None, :] < cost[:, :, None])
-              | ((cost[:, None, :] == cost[:, :, None])
-                 & (g[None, :] < g[:, None])))
-    rank = before.sum(2)
-    return rank < ln.dyn.zone_groups[:, None]
-
-
-def _wear_bounded_avail(cfg: EngineConfig, ln: _Lanes, w2, a2
-                        ) -> torch.Tensor:
-    """The silent policy's wear-leveling bound as an availability mask:
-    elements worn more than ``dyn.wear_bound`` erases past the
-    least-worn free element are presented busy."""
-    free = ((a2 == AVAIL_FREE) | (a2 == AVAIL_INVALID)) & ln.grid_ok
-    min_wear = torch.where(free, w2, _BIG).amin((1, 2))
-    in_bound = (w2 - min_wear[:, None, None]) <= \
-        ln.dyn.wear_bound[:, None, None]
-    return torch.where(in_bound, a2, AVAIL_VALID)
-
-
-def _grid(cfg: EngineConfig, s: DeviceState):
-    """The (L, n_groups, per_group) wear and availability grids."""
-    n = cfg.n_elements
-    shape = (s.elem_wear.shape[0], cfg.n_groups, cfg.per_group)
-    return (s.elem_wear[:, :n].reshape(shape).contiguous(),
-            s.elem_avail[:, :n].reshape(shape).contiguous())
-
-
-def _claim_ids(cfg: EngineConfig, ln: _Lanes, elig, cols):
-    """The winning groups (the first ``cfg.zone_groups`` eligible,
-    ascending, 0-filled) and their selected element ids
-    (L, zone_groups, take)."""
-    win = _first_groups(elig, cfg.zone_groups)
-    picked = cols[ln.ids[:, None], win.long()]
-    return win, (win[:, :, None] * cfg.per_group + picked).to(I32)
 
 
 # ----------------------------------------------------------------------- #
@@ -828,38 +746,13 @@ def _alloc(cfg: EngineConfig, ln: _Lanes, s: DeviceState,
         flat = elems_row
         claimed = torch.ones_like(flat, dtype=torch.bool)
     else:
-        w2, a2 = _grid(cfg, s)
-        take_eff = ln.take_eff
-        sil = ln.silent
-
-        # traditional: the round-robin window first
-        elig1 = _rr_mask(cfg, ln, s.rr_next)
-        cols1, f1, _ = _take_lowest(cfg, ln, w2, a2, elig1, ln.wear_aware,
-                                    take_eff)
-        # silent: only the ranks the size hint needs (>= 1), from the
-        # wear-bounded grid
-        ranks_hint = -_fdiv(-hint, ln.per_rank)
-        take_s = _clip(torch.where(hint > 0, ranks_hint, take_eff),
-                       1, take_eff)
-        a2b = _wear_bounded_avail(cfg, ln, w2, a2)
-        # the cheapest-groups claim: traditional's fallback (whole grid,
-        # unbounded) or silent's (hint-sized, wear-bounded), wear-aware
-        a2p = torch.where(sil[:, None, None], a2b, a2)
-        take_p = torch.where(sil, take_s, take_eff)
-        elig2 = _cheapest_groups(cfg, ln, w2, a2p, take_p)
-        cols2, f2, _ = _take_lowest(cfg, ln, w2, a2p, elig2, ln.ones,
-                                    take_p)
-        use_rr = ~sil & f1
-        cols = torch.where(use_rr[:, None, None], cols1, cols2)
-        elig = torch.where(use_rr[:, None], elig1, elig2)
-        feasible = torch.where(sil, f2, f1 | f2)
-        # the window advances even when the allocation then fails
-        rr_next = torch.where(
-            sil, s.rr_next,
-            torch.remainder(s.rr_next + dyn.zone_groups, ln.ng))
-        rank_lim = torch.where(sil, take_s, dyn.take)
-
-        win, eids = _claim_ids(cfg, ln, elig, cols)
+        # the whole selection, one zns_alloc launch: the round-robin
+        # window or the cheapest (for silent lanes wear-bounded,
+        # hint-sized) groups, and their elements in slot order
+        win, eids, feasible, rr_next, rank_lim = zns_ops.alloc_select(
+            s.elem_wear, s.elem_avail, ln.sel, s.rr_next, hint,
+            n_groups=cfg.n_groups, per_group=cfg.per_group, take=cfg.take,
+            zone_groups=cfg.zone_groups)
         ranks = torch.arange(cfg.take, dtype=I32, device=dev)[None, None, :]
         cpos = torch.arange(cfg.zone_groups, dtype=I32,
                             device=dev)[None, :, None]
@@ -928,19 +821,13 @@ def _grow_silent(cfg: EngineConfig, ln: _Lanes, s: DeviceState,
                  torch.clamp(dyn.zone_groups, min=1))
     grow = pred & ln.silent & (need > have)
 
-    w2, a2 = _grid(cfg, s)
-    a2b = _wear_bounded_avail(cfg, ln, w2, a2)
-    # the zone's winning groups, recovered from its column map
-    pos = torch.arange(cfg.zone_groups, dtype=I32, device=dev)[None, :]
-    lpg = ln.lpg[:, None]
-    at = torch.clamp(pos * lpg, 0, cfg.parallelism - 1)
-    win_g = _fdiv(_gather(_at(s.zone_cols, ln, zone), at), lpg)
-    gidx = torch.where(pos < dyn.zone_groups[:, None], win_g, cfg.n_groups)
-    g = torch.arange(cfg.n_groups, dtype=I32, device=dev)
-    elig = (gidx[:, :, None] == g).any(1)
     k = need - have
-    cols, fg, _ = _take_lowest(cfg, ln, w2, a2b, elig, ln.ones, k)
-    _, eids = _claim_ids(cfg, ln, elig, cols)
+    # the cheapest wear-bounded elements of the zone's own winning
+    # groups (recovered from its column map), one zns_alloc launch
+    eids, fg = zns_ops.grow_select(
+        s.elem_wear, s.elem_avail, ln.sel, s.zone_cols, zone, k,
+        n_groups=cfg.n_groups, per_group=cfg.per_group, take=cfg.take,
+        zone_groups=cfg.zone_groups)
     ranks = torch.arange(cfg.take, dtype=I32, device=dev)[None, None, :]
     cpos = torch.arange(cfg.zone_groups, dtype=I32,
                         device=dev)[None, :, None]

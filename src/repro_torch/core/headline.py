@@ -245,8 +245,8 @@ def paper_report(flash: Optional[FlashGeometry] = None,
 
     passes = []
     for _ in range(2):
-        before = zns_ops.launches
-        passes.append((figures(), zns_ops.launches - before))
+        before = sum(zns_ops.counts.values())
+        passes.append((figures(), sum(zns_ops.counts.values()) - before))
     (first, n_first), (out, n_second) = passes
     for name in first:
         assert first[name] == out[name], (

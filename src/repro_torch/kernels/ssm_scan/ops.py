@@ -10,7 +10,10 @@ any device (the card's comparison path).
 
 The kernel reads x, dt, b and c through their strides (the last dimension
 must be contiguous), so b and c may be column slices of the Mamba layer's
-``x_proj`` output without a copy.
+``x_proj`` output without a copy.  It stages them in shared memory
+:data:`CHUNK` steps at a time with 16-byte copies where their addresses
+and strides are 16-byte aligned (by plain loads where not), and a CTA
+covers :data:`TILE` channels of one sequence.
 
 :func:`single_step` is the one-token decode form, plain torch as in the
 reference.
@@ -32,6 +35,8 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 MAX_STATE = 16
+TILE = 256         # channels per CTA: 128 threads of 2 (csrc constants)
+CHUNK = 16         # steps staged in shared memory at a time
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

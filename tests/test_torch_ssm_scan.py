@@ -137,6 +137,17 @@ def test_ssm_scan_rejections(monkeypatch, tmp_path):
         ops._lib()
 
 
+def test_wrapper_tile_and_chunk_are_the_kernels_defaults():
+    """``ops.TILE`` / ``ops.CHUNK`` (which the card's tests use to cross
+    the kernel's widths) name the source's compile-time constants."""
+    import re
+    src = ops.SOURCE.read_text()
+    d = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);",
+                                          src)}
+    assert ops.TILE == d["kC"] * d["kThreads"]
+    assert ops.CHUNK == d["kChunk"]
+
+
 # --------------------------------------------------------------------- #
 # one decode step
 # --------------------------------------------------------------------- #
@@ -206,3 +217,23 @@ def test_cuda_kernel_matches_its_plain_version():
             want = ref.ssm_scan_ref(*args)
             torch.cuda.synchronize()
             assert rel_err(to_np(got), to_np(want)) < tol(dt)
+
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_on_two_devices():
+    """Run on two cards only: the f32 kernel needs more than 48 KB of
+    shared memory a CTA, an attribute set per device, so a launch on the
+    second card after one on the first must be granted it too."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(14)
+    inputs = [torch.from_numpy(np.asarray(v, np.float32))
+              for v in scan_inputs(rng, 2, 70, 300, 16)]
+    for dev in ("cuda:0", "cuda:1", "cuda:0"):
+        args = [v.to(dev) for v in inputs]
+        got = ops.ssm_scan(*args)
+        want = ref.ssm_scan_ref(*args)
+        torch.cuda.synchronize(dev)
+        assert got.device == torch.device(dev)
+        assert rel_err(to_np(got), to_np(want)) < tol("f32")
