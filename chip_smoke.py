@@ -34,6 +34,25 @@ of which stops the run with a non-zero exit when it fails:
    ``paper_report`` and the fleet dispatch; and one headline dispatch
    under ``torch.profiler`` for the card's busy share, its device events
    per op step and the fused kernels' device time;
+11. the key-value storage path: six zn540 lanes of recorded application
+    traffic -- one drive-write of KVBench LSM flush/compaction traffic
+    (``scaled_kv_config(..., n_flushes=250)`` on ``ZoneFS``), checkpoint
+    bursts and a Zipfian flash cache, each on a traditional whole-zone
+    lane and a silent BLOCK lane -- recorded with the port's
+    ``RecordingBackend`` and replayed as ONE ``replay_recorders`` dispatch
+    on the card (rows checked before, every lane's state sanitized
+    after), every lane held to the reference's summary
+    ``tests/data/torch_kv_zn540.json`` (sha256 of the programs and of
+    every ``DeviceState`` / ``OpTrace`` field, metrics exactly, makespans
+    and class latencies at rel 1e-5), with exactly one ``alloc_select``
+    and one ``grow_select`` launch per op step (7,296 each) and nothing
+    else of ``zns_alloc``; the record and dispatch seconds, lane-ops/s,
+    the per-lane table, a 256-op-step prefix under ``torch.profiler``,
+    and both fused selections timed at this batch's lane table;
+12. ZoneFS + the LSM simulator over the device shim
+    (``ZNSDevice(zn540, BLOCK)``) on the card and on the CPU: reports,
+    counters and element state equal, and a recorder's one-program
+    replay of the same traffic on the card gives the shim's DLWA;
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at both serving paths' shapes (granite's and
    the Jamba cut's: S 2048, G 8), at S and Sk on, one before and one
@@ -86,10 +105,10 @@ then, with granite's model and caches freed, the Mamba path:
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
-per kernel and path (``path``: ``paper_report`` for the two fused
-``zns_alloc`` selections, the Pallas contract for its row kernel,
-granite-3-8b, the Jamba cut), each with that path's launches and the
-times at its shapes -- and ``{"ok": true, "device": {...}}``.
+per kernel and path (``path``: ``paper_report`` and ``kv_zn540`` for the
+two fused ``zns_alloc`` selections, the Pallas contract for its row
+kernel, granite-3-8b, the Jamba cut), each with that path's launches and
+the times at its shapes -- and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -553,6 +572,218 @@ def profile_dispatch(torch, eng, programs, dyn) -> dict:
                 if name in e.name]
         out[name] = (len(kern), sum(kern) / len(kern) if kern else None)
     return out
+
+
+# --------------------------------------------------------------------- #
+# phases 11-12: the key-value storage path
+# --------------------------------------------------------------------- #
+def kv_recorders(S, eng, p: dict) -> dict:
+    """One class-tagged recorder per workload of the KV dispatch, with the
+    golden file's parameters ``p`` (those of the reference's
+    ``tools/bench.py`` trace recorders, the LSM at one drive-write)."""
+    recs = {}
+    for name in ("lsm", "ckpt", "cache"):
+        classes = S.WORKLOADS[name]
+        rec = S.RecordingBackend(
+            eng.flash, zone_pages=eng.cfg.zone_pages, n_zones=p["n_zones"],
+            max_active=p["max_active"],
+            class_tenants={c: i for i, c in enumerate(classes)})
+        if name == "lsm":
+            cfg = S.scaled_kv_config(
+                rec.zone_pages, eng.flash.page_bytes, seed=p["lsm"]["seed"],
+                n_flushes=p["lsm"]["n_flushes"],
+                max_jobs=S.compile._lsm_jobs(rec))
+            sim = S.LSMSimulator(S.ZoneFS(rec), cfg)
+            sim.run()
+            check(not sim.failed, "the KV LSM recording failed to place "
+                  "a file")
+        elif name == "ckpt":
+            S.record_checkpoints(rec, S.CheckpointSchedule(**p["ckpt"]))
+        else:
+            S.record_cache(rec, **p["cache"])
+        recs[name] = rec
+    return recs
+
+
+def sha256(np, a) -> str:
+    """sha256 of an integer array's int32 (bool: uint8) C-order bytes."""
+    import hashlib
+    a = np.asarray(a)
+    a = a.astype(np.uint8 if a.dtype == np.bool_ else np.int32)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+#: the report keys that are times (or their ratio): held at rel 1e-5
+KV_TIME_KEYS = {"makespan_s", "mean_latency_s", "p50_latency_s",
+                "p99_latency_s", "max_latency_s", "p99_over_p50"}
+
+
+def check_golden(got, want, where: str, key: str = "") -> None:
+    """``got`` equals ``want``: times at rel 1e-5, the rest exactly."""
+    if isinstance(want, dict):
+        check(sorted(got) == sorted(want), f"{where}: keys differ")
+        for k in want:
+            check_golden(got[k], want[k], f"{where}.{k}", k)
+    elif isinstance(want, list):
+        check(len(got) == len(want), f"{where}: lengths differ")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_golden(a, b, f"{where}[{i}]", key)
+    elif key in KV_TIME_KEYS:
+        check(abs(got - want) <= 1e-5 * abs(want),
+              f"{where}: {got!r} vs {want!r} (rel 1e-5)")
+    else:
+        check(got == want, f"{where}: {got!r} != {want!r}")
+
+
+def phase_kv(torch, np, S, headline, ops, golden: dict) -> dict:
+    """Phase 11: record six zn540 lanes (lsm, ckpt, cache, each on a
+    traditional whole-zone lane and a silent BLOCK lane), replay them as
+    ONE dispatch on the card, hold every lane to the reference's golden
+    summary, and count the zns_alloc launches of that dispatch."""
+    from repro_torch.core.elements import BLOCK
+    from repro_torch.core.engine import stack_dyn
+    p = golden["params"]
+    eng = headline.build_headline_engine(device="cuda")
+    t0 = time.perf_counter()
+    recs = kv_recorders(S, eng, p)
+    record_s = time.perf_counter() - t0
+    trad = eng.dyn(spec=headline.traditional_spec(eng.zone_geom))
+    silent = eng.dyn(spec=BLOCK, alloc_policy="silent")
+    labels = [(name, policy) for name in recs
+              for policy in ("traditional", "silent")]
+    lanes = [recs[name] for name, _ in labels]
+    dyns = [trad if policy == "traditional" else silent
+            for _, policy in labels]
+    # the runner's engine dispatch, timed and kept for its op traces
+    dispatched = {}
+    run_batch = eng.run_batch
+
+    def timed_run_batch(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_batch(*args, **kw)
+        torch.cuda.synchronize()
+        dispatched.update(out=out, s=time.perf_counter() - t0)
+        return out
+    eng.run_batch = timed_run_batch
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = S.replay_recorders(eng, lanes, dyns=dyns, n_tenants=p["n_tenants"],
+                             pad_quantum=p["pad_quantum"], check=True,
+                             sanitize=True)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    eng.run_batch = run_batch
+    states, trace = dispatched["out"]
+    steps = int(res.programs.shape[1])
+    check(steps == golden["op_steps"],
+          f"KV dispatch has {steps} op steps, the golden file "
+          f"{golden['op_steps']}")
+    check(counts == {"alloc_select": steps, "grow_select": steps,
+                     "rows": 0},
+          f"KV dispatch launched {counts}, want {steps} each of "
+          f"alloc_select and grow_select over {steps} op steps")
+    got = []
+    for k, (name, policy) in enumerate(labels):
+        got.append({
+            "workload": name, "policy": policy, "n_ops": len(lanes[k]),
+            "program_sha256": sha256(np, lanes[k].program()),
+            "state_sha256": {f: sha256(np, getattr(states, f)[k].cpu())
+                             for f in type(states)._fields},
+            "trace_sha256": {f: sha256(np, getattr(trace, f)[k].cpu())
+                             for f in type(trace)._fields},
+            "metrics": S.lane_metrics(eng, res, k),
+            "makespan_s": float(res.makespans[k]),
+            "classes": res.tenant_class_report(
+                lanes=[k], names=list(S.WORKLOADS[name]))})
+    check_golden(got, golden["lanes"], "kv_zn540")
+    dispatch_s = dispatched["s"]
+    log(f"phase 11: KV storage dispatch at zn540 == "
+        f"tests/data/torch_kv_zn540.json (6 lanes x {steps} op steps; "
+        f"programs, every state and trace field, metrics exactly; "
+        f"makespans and class latencies at rel 1e-5); zns_alloc launches "
+        f"{counts}: 1 alloc_select + 1 grow_select per op step")
+    log(f"phase 11: recorded {sum(len(r) for r in recs.values())} ops in "
+        f"{record_s:.3f} s; engine dispatch {dispatch_s:.3f} s on cuda = "
+        f"{len(lanes) * steps / dispatch_s:.1f} lane-ops/s "
+        f"({dispatch_s / steps * 1e3:.3f} ms per op step); replay_recorders "
+        f"with timing, checks and sanitizer {replay_s:.3f} s")
+    log("phase 11: lane | n_ops | DLWA | block erases | makespan s | "
+        "alloc_calls")
+    for lane in got:
+        m = lane["metrics"]
+        log(f"phase 11: {lane['workload']} / {lane['policy']} | "
+            f"{lane['n_ops']} | {m['dlwa']!r} | {m['block_erases']!r} | "
+            f"{lane['makespan_s']!r} | {m['alloc_calls']!r}")
+    for name in recs:
+        t, s_ = [lane for lane in got if lane["workload"] == name]
+        ratio = {key: (s_v / t_v if t_v else None) for key, s_v, t_v in (
+            ("dlwa", s_["metrics"]["dlwa"], t["metrics"]["dlwa"]),
+            ("erases", s_["metrics"]["block_erases"],
+             t["metrics"]["block_erases"]),
+            ("makespan", s_["makespan_s"], t["makespan_s"]))}
+        log(f"phase 11: {name} silent/traditional: {ratio}")
+    # a 256-op-step prefix of the same batch under the profiler
+    prefix = res.programs[:, :256]
+    prof = profile_dispatch(torch, eng, prefix, stack_dyn(dyns))
+    if prof["device_events"]:
+        log(f"phase 11: profiled a {prefix.shape[1]}-op-step prefix of the "
+            f"KV batch ({prefix.shape[0]} lanes): wall "
+            f"{prof['wall_us']:.1f} us, device busy {prof['busy_us']:.1f} "
+            f"us ({prof['busy_us'] / prof['wall_us']:.4f} of wall), "
+            f"{prof['device_events'] / prefix.shape[1]:.1f} device events "
+            f"per op step; alloc_select (launches, us each) "
+            f"{prof['alloc_select_kernel']}, grow_select "
+            f"{prof['grow_select_kernel']}")
+    else:
+        log("phase 11: profiler recorded no device events: device busy "
+            "share not measured")
+    return {"eng": eng, "dyn": stack_dyn(dyns), "counts": counts,
+            "prof": prof, "dispatch_s": dispatch_s, "steps": steps}
+
+
+def phase_shim(torch, np, S) -> None:
+    """Phase 12: ZoneFS + the LSM simulator over the device shim on the
+    card and on the CPU must agree, and a recorder's replay of the same
+    traffic on the card must give the shim's DLWA."""
+    from repro_torch.core.device import ZNSDevice
+    from repro_torch.core.elements import BLOCK
+    from repro_torch.core.geometry import zn540
+    out = {}
+    for dev_name in ("cuda", "cpu"):
+        dev = ZNSDevice(*zn540(), BLOCK, device=dev_name)
+        cfg = S.scaled_kv_config(dev.zone_pages, dev.flash.page_bytes,
+                                 seed=0, n_flushes=8,
+                                 max_jobs=S.compile._lsm_jobs(dev))
+        if dev_name == "cuda":
+            dev.warmup_alloc()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = S.LSMSimulator(S.ZoneFS(dev), cfg).run()
+        secs = time.perf_counter() - t0
+        out[dev_name] = (rep, dev, secs)
+    (rep, dev, secs), (cpu_rep, cpu_dev, cpu_secs) = out["cuda"], out["cpu"]
+    check(rep == cpu_rep, f"phase 12: report() differs: {rep} vs {cpu_rep}")
+    for name in ("dlwa", "host_pages", "dummy_pages", "block_erases",
+                 "alloc_calls"):
+        check(getattr(dev, name) == getattr(cpu_dev, name),
+              f"phase 12: {name} differs between cuda and cpu")
+    for name in ("elem_wear", "elem_avail", "elem_pages", "elem_zone"):
+        check(np.array_equal(getattr(dev, name), getattr(cpu_dev, name)),
+              f"phase 12: {name} differs between cuda and cpu")
+    # the same traffic recorded and replayed as one program on the card
+    rec = S.RecordingBackend.for_engine(dev.engine)
+    S.LSMSimulator(S.ZoneFS(rec), cfg).run()
+    check(rec.dlwa == dev.dlwa and rec.dummy_pages == dev.dummy_pages,
+          f"phase 12: replayed DLWA {rec.dlwa!r} != shim's {dev.dlwa!r}")
+    n = len(rec)
+    log(f"phase 12: ZoneFS + LSM over ZNSDevice(zn540, BLOCK): cuda == cpu "
+        f"(report, counters, element state), DLWA {dev.dlwa!r}; the "
+        f"recorder's one-program replay on cuda gives the same DLWA; "
+        f"{n} commands: {secs / n * 1e3:.3f} ms a command on cuda, "
+        f"{cpu_secs / n * 1e3:.3f} ms on cpu")
 
 
 # --------------------------------------------------------------------- #
@@ -1321,6 +1552,24 @@ def main() -> int:
         log("phase 6: profiler recorded no device events: device busy "
             "share not measured")
 
+    # 11. the key-value storage path: six zn540 lanes of recorded
+    # application traffic as one dispatch, held to the reference's
+    # golden summary; 12. the device shim on the card vs the CPU
+    import repro_torch.storage as S
+    golden = json.loads((ROOT / "tests" / "data" /
+                         "torch_kv_zn540.json").read_text())
+    kv = phase_kv(torch, np, S, headline, ops, golden)
+    kv_t = fused_timing(torch, np, ops, ref, engine, kv["eng"], kv["dyn"],
+                        seed=11)
+    for kname, t in kv_t.items():
+        log(f"phase 11: zns_alloc {kname} at the KV batch ({t['lanes']} "
+            f"lanes, {t['rows']} row selections): kernel {t['ms']:.6f} ms "
+            f"a call, device {t['device_us']} us a launch, plain "
+            f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+    del kv["eng"]
+    phase_shim(torch, np, S)
+
     # 7. the attention kernels vs their plain versions; 7b. the scan
     attn_err = phase_attention(torch, np, fops, fref, dops, dref)
     ssm_err = phase_ssm(torch, np, sops, sref)
@@ -1415,6 +1664,21 @@ def main() -> int:
         "plain_ms": fused["wear"][kname]["plain_ms"],
         "bound_ms": fused["wear"][kname]["bound_ms"],
         "bound_by": fused["wear"][kname]["bound_by"],
+        "library_ms": None,
+    } for kname in ("alloc_select", "grow_select")]
+    zns_entries += [{
+        "name": f"zns_alloc/{kname}",
+        "path": "kv_zn540",
+        "route": "cuda",
+        "source": zns,
+        "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
+        "launches": kv["counts"][kname],
+        "max_abs_err": max_abs_err,
+        "ms": kv_t[kname]["ms"],
+        "device_us": kv["prof"][f"{kname}_kernel"][1],
+        "plain_ms": kv_t[kname]["plain_ms"],
+        "bound_ms": kv_t[kname]["bound_ms"],
+        "bound_by": kv_t[kname]["bound_by"],
         "library_ms": None,
     } for kname in ("alloc_select", "grow_select")]
     zns_entries.append({

@@ -327,14 +327,16 @@ def make_dyn(cfg: EngineConfig, *, zone_pages: Optional[int] = None,
 def dyn_values(cfg: EngineConfig, dyn: Optional[DynConfig] = None,
                lane: Optional[int] = None) -> dict:
     """Host-side snapshot of the *effective* value-only configuration:
-    the :class:`DynConfig` fields as plain Python ints/bools (``cfg``'s
-    own values when ``dyn`` is ``None``); ``lane`` selects one row of a
-    stacked (:func:`stack_dyn`) DynConfig."""
+    the :class:`DynConfig` fields (tensors, or numpy leaves as
+    :func:`dyn_to_numpy` gives them) as plain Python ints/bools
+    (``cfg``'s own values when ``dyn`` is ``None``); ``lane`` selects one
+    row of a stacked (:func:`stack_dyn`) DynConfig."""
     if dyn is None:
         dyn = make_dyn(cfg)
     out = {}
     for name, leaf in zip(DynConfig._fields, dyn):
-        v = leaf.detach().cpu().numpy()
+        v = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+             else np.asarray(leaf))
         if lane is not None and v.ndim > 0:
             v = v[lane]
         if v.ndim != 0:
@@ -1010,6 +1012,35 @@ def _lane_dyn(cfg: EngineConfig, dyn: Optional[DynConfig], L: int,
     return DynConfig(*out)
 
 
+def apply_op(cfg: EngineConfig, state: DeviceState, row,
+             dyn: Optional[DynConfig] = None
+             ) -> Tuple[DeviceState, OpTrace]:
+    """One zone command as a pure transition, on the state's device.
+
+    ``row`` is one ``(>=4,)`` op row for a device state without a lane
+    axis (``dyn`` with rank-0 leaves), or ``(L, >=4)`` rows -- one per
+    lane -- for a state with a leading lane axis (``dyn`` with ``()`` or
+    ``(L,)`` leaves).  Returns the new state and the op's trace, shaped
+    like the input."""
+    dev = state.elem_wear.device
+    if not isinstance(row, torch.Tensor):
+        row = torch.from_numpy(np.asarray(row, dtype=np.int32))
+    row = row.to(device=dev, dtype=I32)
+    single = row.dim() == 1
+    if single:
+        state = DeviceState(*[t[None] for t in state])
+        row = row[None]
+    if row.dim() != 2 or row.shape[1] < 4:
+        raise ValueError(f"row must be (>=4,) or (L, >=4), got "
+                         f"{tuple(row.shape)}")
+    ln = _lanes(cfg, _lane_dyn(cfg, dyn, row.shape[0], dev))
+    s, tr = _apply_op_impl(cfg, ln, state, row)
+    if single:
+        return (DeviceState(*[t[0] for t in s]),
+                OpTrace(*[t[0] for t in tr]))
+    return s, tr
+
+
 def run_programs(cfg: EngineConfig, state: DeviceState, programs,
                  dyn: Optional[DynConfig] = None, *, obs=None,
                  device="cuda") -> Tuple[DeviceState, OpTrace]:
@@ -1127,6 +1158,12 @@ class ZoneEngine:
         return union_grid_ids(v.n_elements, v.per_group,
                               self.cfg.per_group)
 
+    def apply(self, state: DeviceState, row,
+              dyn: Optional[DynConfig] = None
+              ) -> Tuple[DeviceState, OpTrace]:
+        """One op row: :func:`apply_op`."""
+        return apply_op(self.cfg, state, row, dyn)
+
     def run(self, state: DeviceState, program,
             dyn: Optional[DynConfig] = None, *, obs=None
             ) -> Tuple[DeviceState, OpTrace]:
@@ -1138,6 +1175,14 @@ class ZoneEngine:
                   ) -> Tuple[DeviceState, OpTrace]:
         return run_programs(self.cfg, state, programs, dyn, obs=obs,
                             device=self.device)
+
+    def warmup(self) -> None:
+        """Run every op branch once on a scratch state, so the first
+        timed command pays no kernel build or load."""
+        s = self.init_state()
+        for op in (OP_ALLOC, OP_WRITE, OP_FINISH, OP_RESET):
+            s, _ = self.apply(s, (op, 0, 1, F_HOST))
+        s.elem_wear.cpu()
 
     # -- metrics -------------------------------------------------------- #
     def metrics(self, state: DeviceState) -> dict:
@@ -1167,3 +1212,29 @@ class ZoneEngine:
         wear[layout.blocks.reshape(-1)] = np.repeat(
             self.elem_wear(state, spec), layout.blocks_per_element)
         return wear
+
+    # -- IO stream reconstruction (host-side, after the dispatch) ------- #
+    def op_stream(self, op: int, wp_before: int, wp_after: int,
+                  dummy_delta: int, elems_after: np.ndarray,
+                  cols: np.ndarray):
+        """Rebuild the per-page ``(luns, channels, kind)`` stream of one
+        traced op, exactly as the device shim's ``trace=True`` path emits
+        it.  Returns ``None`` when the op moved no pages."""
+        cfg = self.cfg
+        cols = np.asarray(cols, dtype=np.int64)
+        if op == OP_WRITE and wp_after > wp_before:
+            return zns.page_stream(wp_before, wp_after - wp_before,
+                                   cfg.parallelism, cfg.pages_per_block,
+                                   cols, cfg.n_channels) + ("write",)
+        if op == OP_FINISH and dummy_delta > 0:
+            written = zns.element_pages(
+                wp_before, self.spec, cfg.parallelism, cfg.n_segments,
+                cfg.pages_per_block)
+            padded = np.nonzero((np.asarray(elems_after) >= 0)
+                                & (written > 0)
+                                & (written < cfg.pages_per_element))[0]
+            return zns.pad_stream(
+                wp_before, cfg.zone_pages, self.spec, cfg.parallelism,
+                cfg.pages_per_block, cols, padded.astype(np.int64),
+                cfg.n_channels) + ("write",)
+        return None

@@ -15,11 +15,15 @@ makespans match the reference's to f32 rounding.
 * :func:`simulate_fleet_ops` -- whole zone ops as single requests over a
   batch of lanes (the op-granular model the paper headline prices
   execution time with);
-* :func:`simulate_fleet` / :func:`simulate` -- page-granular, a batch of
-  devices or one.
+* :func:`simulate_fleet` / :func:`run_fleet_trace` -- page-granular, a
+  batch of independent devices in one pass;
+* :func:`simulate` / :func:`run_trace` -- page-granular, one device: the
+  model behind the paper's reported figures.
 
-The trace-level drivers (``run_trace``, ``run_fleet_trace``) wait for
-the port of the ``IOTrace`` device shim.
+The trace drivers take the shim's :class:`~repro_torch.core.device.IOTrace`
+streams and run on ``device`` (the card by default).  The page loop
+launches a few kernels per page, so long page streams are cheaper on
+the CPU.
 
 Units: times in seconds, requests in flash pages (ops/luns/channels are
 int32 indexes).
@@ -27,11 +31,17 @@ int32 indexes).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.core.device import IOTrace
+from repro_torch.core.geometry import FlashGeometry
+
 OP_WRITE, OP_READ, OP_ERASE = 0, 1, 2
+_OP_CODE = {"write": OP_WRITE, "read": OP_READ, "erase": OP_ERASE}
 
 F32 = torch.float32
 
@@ -138,3 +148,134 @@ def simulate_fleet_ops(cols: torch.Tensor, pages: torch.Tensor,
         ten_done[ids, t] = torch.where(active, done, prev)
         done_all[:, i] = torch.where(active, done, 0.0)
     return done_all, lat_all, lun_free.amax(1)
+
+
+def _t_op(flash: FlashGeometry, dev: torch.device) -> torch.Tensor:
+    return torch.tensor([flash.t_prog, flash.t_read, flash.t_erase],
+                        dtype=F32, device=dev)
+
+
+def _i32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+
+def run_fleet_trace(flash: FlashGeometry,
+                    device_traces: Sequence[Sequence[IOTrace]],
+                    *, interleave: bool = True, device="cuda") -> dict:
+    """Simulate per-device trace bundles in one batched pass.
+
+    ``device_traces[i]`` holds device ``i``'s concurrent streams (host
+    data chunks, parity appends routed to it, FINISH padding); each
+    device's streams are merged round-robin exactly as :func:`run_trace`
+    would, then all devices advance together under
+    :func:`simulate_fleet`.
+
+    Returns per-device makespans/throughputs plus the fleet makespan
+    (the slowest member -- the array completes a stripe only when every
+    chunk, parity included, is durable).
+    """
+    n_dev = len(device_traces)
+    if n_dev == 0:
+        return {"fleet_makespan_s": 0.0, "n": 0}
+    dev = resolve_device(device)
+    merged = []
+    for trs in device_traces:
+        trs = [t for t in trs if len(t.luns)]
+        if trs:
+            ops, luns, chans, _ = _merge(trs, interleave)
+        else:
+            ops = luns = chans = np.zeros(0, dtype=np.int32)
+        merged.append((ops, luns, chans))
+    n_max = max(1, max(len(m[0]) for m in merged))
+
+    def pad(a: np.ndarray) -> np.ndarray:
+        out = np.zeros(n_max, dtype=np.int32)
+        out[: len(a)] = a
+        return out
+
+    ops = np.stack([pad(m[0]) for m in merged])
+    luns = np.stack([pad(m[1]) for m in merged])
+    chans = np.stack([pad(m[2]) for m in merged])
+    valid = np.stack([np.arange(n_max) < len(m[0]) for m in merged])
+    _, makespans = simulate_fleet(
+        _i32(ops, dev), _i32(luns, dev), _i32(chans, dev),
+        torch.from_numpy(valid).to(dev), _t_op(flash, dev),
+        torch.tensor(flash.t_xfer, dtype=F32, device=dev),
+        flash.n_luns, flash.n_channels)
+    makespans = makespans.cpu().numpy()
+    counts = valid.sum(axis=1)
+    out = {"fleet_makespan_s": float(makespans.max()),
+           "n": int(counts.sum())}
+    for i in range(n_dev):
+        t = float(makespans[i])
+        out[f"dev{i}_makespan_s"] = t
+        out[f"dev{i}_n"] = int(counts[i])
+        out[f"dev{i}_throughput_pages_s"] = float(counts[i] / t) if t else 0.0
+    return out
+
+
+def group_tagged(tagged: Sequence[Tuple[int, IOTrace]], n_devices: int
+                 ) -> list:
+    """Split ``(device, trace)`` pairs (as emitted by ``ZNSArray`` trace
+    mode) into the per-device bundles ``run_fleet_trace`` consumes."""
+    out: list = [[] for _ in range(n_devices)]
+    for idx, tr in tagged:
+        out[idx].append(tr)
+    return out
+
+
+def run_trace(flash: FlashGeometry, traces: Sequence[IOTrace],
+              *, interleave: bool = True, device="cuda") -> dict:
+    """Simulate one or more IOTraces; returns timing stats.
+
+    ``interleave=True`` merges the traces round-robin (concurrent queues);
+    ``False`` concatenates them (sequential submission).
+    """
+    if not traces:
+        return {"makespan_s": 0.0, "n": 0, "throughput_pages_s": 0.0}
+    dev = resolve_device(device)
+    ops, luns, chans, owner = _merge(traces, interleave)
+    completions, makespan = simulate(
+        _i32(ops, dev), _i32(luns, dev), _i32(chans, dev),
+        _t_op(flash, dev), torch.tensor(flash.t_xfer, dtype=F32, device=dev),
+        flash.n_luns, flash.n_channels)
+    completions = completions.cpu().numpy()
+    makespan = float(makespan)
+    out = {"makespan_s": makespan, "n": int(len(ops)),
+           "throughput_pages_s": len(ops) / makespan if makespan else 0.0}
+    # per-owner completion (owner 0 = first trace = usually the host)
+    for i in range(len(traces)):
+        sel = owner == i
+        if sel.any():
+            t = float(completions[sel].max())
+            out[f"owner{i}_makespan_s"] = t
+            out[f"owner{i}_throughput_pages_s"] = int(sel.sum()) / t if t else 0.0
+    return out
+
+
+def _merge(traces: Sequence[IOTrace], interleave: bool
+           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    ops_l, luns_l, chans_l, owner_l = [], [], [], []
+    for i, tr in enumerate(traces):
+        n = len(tr.luns)
+        ops_l.append(np.full(n, _OP_CODE[tr.op], dtype=np.int32))
+        luns_l.append(np.asarray(tr.luns, dtype=np.int32))
+        chans_l.append(np.asarray(tr.channels, dtype=np.int32))
+        owner_l.append(np.full(n, i, dtype=np.int32))
+    if not interleave or len(traces) == 1:
+        return (np.concatenate(ops_l), np.concatenate(luns_l),
+                np.concatenate(chans_l), np.concatenate(owner_l))
+    # round-robin merge by per-stream position (models concurrent queues)
+    order_keys = np.concatenate(
+        [np.arange(len(t.luns), dtype=np.int64) * len(traces) + i
+         for i, t in enumerate(traces)])
+    perm = np.argsort(order_keys, kind="stable")
+    return (np.concatenate(ops_l)[perm], np.concatenate(luns_l)[perm],
+            np.concatenate(chans_l)[perm], np.concatenate(owner_l)[perm])
+
+
+def write_bandwidth_mib_s(flash: FlashGeometry, stats: dict,
+                          owner: Optional[int] = None) -> float:
+    key = ("throughput_pages_s" if owner is None
+           else f"owner{owner}_throughput_pages_s")
+    return stats.get(key, 0.0) * flash.page_bytes / (1024 * 1024)

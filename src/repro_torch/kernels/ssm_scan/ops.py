@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -129,17 +129,19 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
 
 def single_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
                 b_t: torch.Tensor, c_t: torch.Tensor, a: torch.Tensor,
-                d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                d: torch.Tensor, x_f32: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step: h ``(BH, P, N)`` f32, x_t/dt_t ``(BH, P)``,
     b_t/c_t ``(BH, N)`` -> ``(h, y)`` with y ``(BH, P)`` in x_t's dtype.
 
     Unlike the reference, ``h`` is updated IN PLACE (the returned ``h``
-    is the argument), with the reference's rounding: ``dt_t * x_t`` is
-    taken in the input dtype and then upcast, as ``repro``'s
-    ``single_step`` does."""
+    is the argument).  Rounding follows the reference's compiled decode
+    step, where XLA drops a rounding to x_t's dtype that an f32 convert
+    follows at once: ``dt_t * x_t`` is taken in f32, and the skip term
+    reads ``x_f32``, x_t before its rounding, where the caller has it."""
     da = torch.exp(dt_t[..., None].float() * a.float())
-    h.mul_(da).add_((dt_t * x_t).float()[..., None]
+    h.mul_(da).add_((dt_t.float() * x_t.float())[..., None]
                     * b_t.float()[:, None, :])
     y = (h * c_t.float()[:, None, :]).sum(dim=-1) \
-        + d.float() * x_t.float()
+        + d.float() * (x_t.float() if x_f32 is None else x_f32)
     return h, y.to(x_t.dtype)

@@ -34,21 +34,23 @@ def dense_init(generator, d_in: int, d_out: int, *, device,
     return _normal((d_in, d_out), generator, device, scale, dtype)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """RMSNorm in f32, cast to ``dtype`` (x's by default) BEFORE the
+    weight, as the reference does."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    # cast to the input dtype BEFORE the weight, as the reference does
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    return (xf * torch.rsqrt(var + eps)).to(dtype or x.dtype) * w
 
 
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
+              eps: float = 1e-5, *,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return y.to(x.dtype) * w + b
+    return y.to(dtype or x.dtype) * w + b
 
 
 # --------------------------------------------------------------------- #
@@ -88,9 +90,16 @@ def swiglu_init(generator, d: int, d_ff: int, *, device,
                                  dtype=dtype)}
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA lowers it: ``1 / (1 + exp(-x))``, each
+    op rounded to x's dtype.  (``torch.sigmoid`` rounds once, which in
+    bf16 lands an ulp away from the reference on some inputs.)"""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` rounded op by op, like ``jax.nn.silu``."""
-    return x * torch.sigmoid(x)
+    return x * sigmoid(x)
 
 
 def swiglu(x: torch.Tensor, p) -> torch.Tensor:

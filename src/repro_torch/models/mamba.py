@@ -9,8 +9,11 @@ gate by SiLU(z); out_proj.
 Rounding follows the reference step by step: the projections and the
 split run in the activation dtype, the conv accumulates in f32 and is
 cast back before SiLU, ``dt_bias`` is cast to the activation dtype
-before the add and softplus runs in that dtype, the scan runs in f32 and
-returns the activation dtype, and the gate is taken in that dtype.
+before the add, SiLU's sigmoid and softplus round op by op in that dtype
+as XLA lowers them, the scan runs in f32 and returns the activation
+dtype, and the gate is taken in that dtype.  Decode follows the
+reference's compiled step, which keeps two products in f32 (see
+:func:`mamba_decode`).
 
 Serving state per layer: the conv tail ``(B, K-1, d_inner)`` in bf16 and
 the SSM state ``(B, d_inner, N)`` in f32.  :func:`mamba_decode` updates
@@ -55,10 +58,14 @@ def mamba_init(generator, d_model: int, *, expand: int = 2,
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``, which is ``logaddexp(x, 0)`` with no
-    threshold (``torch.nn.functional.softplus`` returns ``x`` itself
-    above ``threshold=20``), in x's dtype."""
-    return torch.logaddexp(x, x.new_zeros(()))
+    """``jax.nn.softplus``, which is ``jnp.logaddexp(x, 0)``: ``max(x, 0)
+    + log1p(exp(-|x|))`` with no threshold
+    (``torch.nn.functional.softplus`` returns ``x`` itself above
+    ``threshold=20``), each op rounded to x's dtype as in the reference
+    (``torch.logaddexp`` rounds once, which in bf16 lands an ulp away
+    from the reference on some inputs)."""
+    return (torch.clamp(x, min=0)
+            + torch.log1p(torch.exp(-torch.abs(x))))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -123,10 +130,15 @@ def mamba_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
     window = torch.cat([cache["conv"], xc[:, None]], dim=1)
     w = p["conv_w"].float()                         # (K, d_inner)
     conv_out = (window.float() * w[None]).sum(dim=1)
-    xc = L.silu(conv_out.to(x.dtype))
+    # SiLU, its last product kept in f32 for the scan's skip term (see
+    # ssm_ops.single_step)
+    xs = conv_out.to(x.dtype)
+    x_f32 = xs.float() * L.sigmoid(xs).float()
+    xc = x_f32.to(x.dtype)
     dt, b, c = _split_xdbc(p, xc, state)
     a = -torch.exp(p["a_log"])
-    _, y = ssm_ops.single_step(cache["ssm"], xc, dt, b, c, a, p["d_skip"])
+    _, y = ssm_ops.single_step(cache["ssm"], xc, dt, b, c, a, p["d_skip"],
+                               x_f32=x_f32)
     y = y * L.silu(z)
     cache["conv"].copy_(window[:, 1:])
     return y @ p["out_proj"], cache

@@ -116,6 +116,25 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+#: the residual stream: the activations in their dtype, and the same sum
+#: in f32 before its rounding
+Residual = Tuple[torch.Tensor, torch.Tensor]
+
+
+def residual(x: torch.Tensor) -> Residual:
+    return x, x.float()
+
+
+def _add(res: Residual, o: torch.Tensor) -> Residual:
+    """A residual add as the reference's compiled program computes it:
+    ``x + o`` rounded to the activation dtype feeds the next add, while
+    the next norm reads the f32 sum -- XLA fuses the norm's f32 convert
+    into the add and drops the rounding between."""
+    x = res[0]
+    xf = torch.add(x.float(), o)    # f32: the sum before its rounding
+    return xf.to(x.dtype), xf
+
+
 class Norm(nn.Module):
     """RMSNorm (weight ``w``) or LayerNorm (``w`` and ``b``)."""
 
@@ -126,10 +145,13 @@ class Norm(nn.Module):
         self.w = _frozen(w)
         self.b = _frozen(b) if b is not None else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, res: Residual) -> torch.Tensor:
+        """The norm of the residual stream's unrounded f32 sum, cast to
+        the stream's dtype."""
+        x, xf = res
         if self.kind == "rmsnorm":
-            return L.rmsnorm(x, self.w)
-        return L.layernorm(x, self.w, self.b)
+            return L.rmsnorm(xf, self.w, dtype=x.dtype)
+        return L.layernorm(xf, self.w, self.b, dtype=x.dtype)
 
 
 class Block(nn.Module):
@@ -156,25 +178,25 @@ class Block(nn.Module):
                 "head_dim": cfg.resolved_head_dim,
                 "rope_theta": cfg.rope_theta}
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, res: Residual) -> Residual:
         if self.ffn is None:
-            return x
-        h = self.norm2(x)
+            return res
+        h = self.norm2(res)
         if self.cfg.act == "swiglu":
-            return x + L.swiglu(h, self.ffn)
-        return x + L.gelu_mlp(h, self.ffn)
+            return _add(res, L.swiglu(h, self.ffn))
+        return _add(res, L.gelu_mlp(h, self.ffn))
 
-    def prefill(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                attn_impl: str, ssm_impl: str) -> torch.Tensor:
-        o = KINDS[self.kind].prefill(self, self.norm1(x), cache, attn_impl,
-                                     ssm_impl)
-        return self._ffn(x + o)
+    def prefill(self, res: Residual, cache: Dict[str, torch.Tensor],
+                attn_impl: str, ssm_impl: str) -> Residual:
+        o = KINDS[self.kind].prefill(self, self.norm1(res), cache,
+                                     attn_impl, ssm_impl)
+        return self._ffn(_add(res, o))
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: torch.Tensor, attn_impl: str) -> torch.Tensor:
-        o = KINDS[self.kind].decode(self, self.norm1(x), cache, pos,
+    def decode(self, res: Residual, cache: Dict[str, torch.Tensor],
+               pos: torch.Tensor, attn_impl: str) -> Residual:
+        o = KINDS[self.kind].decode(self, self.norm1(res), cache, pos,
                                     attn_impl)
-        return self._ffn(x + o)
+        return self._ffn(_add(res, o))
 
 
 # --------------------------------------------------------------------- #
@@ -331,9 +353,8 @@ def _layer_cache(caches: Dict[str, torch.Tensor], slot: Tuple[str, int]
 
 
 def _logits(model: Transformer, cfg: ArchConfig,
-            x: torch.Tensor) -> torch.Tensor:
-    x = model.final_norm(x)
-    return _mask_padded(L.unembed(x, model.embed), cfg)
+            res: Residual) -> torch.Tensor:
+    return _mask_padded(L.unembed(model.final_norm(res), model.embed), cfg)
 
 
 def forward_prefill(model: Transformer, cfg: ArchConfig,
@@ -342,10 +363,11 @@ def forward_prefill(model: Transformer, cfg: ArchConfig,
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: returns (last-token logits (B, Vp) f32, the caches, the
     KV caches filled in place)."""
-    x = L.embed(tokens, model.embed)
+    res = residual(L.embed(tokens, model.embed))
     for blk, slot in zip(model.blocks, cache_slots(cfg)):
-        x = blk.prefill(x, _layer_cache(caches, slot), attn_impl, ssm_impl)
-    return _logits(model, cfg, x[:, -1]), caches
+        res = blk.prefill(res, _layer_cache(caches, slot), attn_impl,
+                          ssm_impl)
+    return _logits(model, cfg, (res[0][:, -1], res[1][:, -1])), caches
 
 
 def forward_decode(model: Transformer, cfg: ArchConfig, token: torch.Tensor,
@@ -354,10 +376,10 @@ def forward_decode(model: Transformer, cfg: ArchConfig, token: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. token (B,), pos (B,) int32 -> (logits (B, Vp)
     f32, the caches, appended in place)."""
-    x = L.embed(token, model.embed)
+    res = residual(L.embed(token, model.embed))
     for blk, slot in zip(model.blocks, cache_slots(cfg)):
-        x = blk.decode(x, _layer_cache(caches, slot), pos, attn_impl)
-    return _logits(model, cfg, x), caches
+        res = blk.decode(res, _layer_cache(caches, slot), pos, attn_impl)
+    return _logits(model, cfg, res), caches
 
 
 # --------------------------------------------------------------------- #
