@@ -28,7 +28,8 @@ of which stops the run with a non-zero exit when it fails:
 5. phase 3 launched exactly one fused ALLOC and one fused grow selection
    per op step of its dispatches (1184 launches), and nothing else;
 6. timings: an empty kernel through the same ctypes route (the floor of
-   any small launch), both fused selections at the zn540 grid (CUDA
+   any small launch), both fused selections at the zn540 grid (held
+   bit for bit against their plain versions on the timed inputs; CUDA
    events a call, ``torch.profiler`` device time a launch, plain
    version, bound), the row kernel beside ``torch.topk``, one
    ``paper_report`` and the fleet dispatch; and one headline dispatch
@@ -48,11 +49,36 @@ of which stops the run with a non-zero exit when it fails:
     and one ``grow_select`` launch per op step (7,296 each) and nothing
     else of ``zns_alloc``; the record and dispatch seconds, lane-ops/s,
     the per-lane table, a 256-op-step prefix under ``torch.profiler``,
-    and both fused selections timed at this batch's lane table;
+    and both fused selections held against their plain versions and
+    timed at this batch's lane table;
 12. ZoneFS + the LSM simulator over the device shim
     (``ZNSDevice(zn540, BLOCK)``) on the card and on the CPU: reports,
     counters and element state equal, and a recorder's one-program
     replay of the same traffic on the card gives the shim's DLWA;
+13. the allocator design-space search at zn540, at the reference's
+    ``tools/bench.py`` full-mode sizes (:data:`FLEET_PARAMS`): (a) the
+    32-config ``grid_space()`` through ``Evaluator(n_devices=4)`` (128
+    lanes x 256 op steps), (b) the 12-config mixed-spec grid over the
+    SUPERBLOCK + BLOCK + vchunk(2) union (48 lanes), (c)
+    ``evolve_vs_random`` (random-32 against evolve), (d) the telemetry
+    batch (32 lanes x 384 steps) run off and on -- states and traces
+    bit-identical, the Perfetto trace and sidecar written to
+    ``build/fleet_zn540_{trace,obs}.json`` and validated, the overhead
+    as the median of 3 paired off/on ratios (the reference takes 9) --
+    (e) 4 generations of a 4-config x 2-device Evaluator whose launch
+    plans must stay flat, (f) the 8 arrays of the reference
+    comparator's engine leg in one ``run_array_batch`` and two
+    ``rebuild_storm`` calls (the second adds no plan); every section
+    held to ``tests/data/torch_fleet_zn540.json`` (rows, rankings,
+    reports and sha256 of programs, lane configs, states, traces and
+    telemetry exactly; clocks at rel 1e-5; the float64 wear statistics
+    at rel 1e-12, see :data:`FLEET_STAT_KEYS`), with exactly one
+    ``alloc_select`` and one ``grow_select`` launch per op step of
+    every dispatch; each section's seconds and lane-ops/s, a profiled
+    256-step prefix of (a) and a 64-step prefix of (d) off and on, and
+    both fused selections held bit for bit against their plain versions
+    and timed at (a)'s 128-lane SUPERBLOCK table and (b)'s 48-lane union
+    table;
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at both serving paths' shapes (granite's and
    the Jamba cut's: S 2048, G 8), at S and Sk on, one before and one
@@ -105,8 +131,9 @@ then, with granite's model and caches freed, the Mamba path:
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
-per kernel and path (``path``: ``paper_report`` and ``kv_zn540`` for the
-two fused ``zns_alloc`` selections, the Pallas contract for its row
+per kernel and path (``path``: ``paper_report``, ``kv_zn540`` and
+``fleet_sweep_zn540`` for the two fused ``zns_alloc`` selections, the
+Pallas contract for its row
 kernel, granite-3-8b, the Jamba cut), each with that path's launches and
 the times at its shapes -- and ``{"ok": true, "device": {...}}``.
 """
@@ -252,9 +279,9 @@ def random_lanes(torch, np, rng, L, G, W, take, ZG, P, n_zones, dev):
     return out
 
 
-def compare_fused(torch, ops, ref, b, dims) -> None:
+def compare_fused(torch, ops, ref, b, dims) -> int:
     """Both fused selections against their plain versions, every output
-    bit for bit."""
+    bit for bit; returns the largest absolute difference (0)."""
     kw = dict(zip(("n_groups", "per_group", "take", "zone_groups"), dims))
     before = dict(ops.counts)
     got = ops.alloc_select(b["wear"], b["avail"], b["lanes"], b["rr"],
@@ -269,14 +296,20 @@ def compare_fused(torch, ops, ref, b, dims) -> None:
     check(ops.counts["alloc_select"] == before["alloc_select"] + 1
           and ops.counts["grow_select"] == before["grow_select"] + 1,
           "fused launches not counted")
+    err = 0
     for kind, g, w in (("alloc_select", got, want),
                        ("grow_select", got_g, want_g)):
         for name, a, e in zip(("win/eids", "eids/feasible", "feasible",
                                "rr_next", "rank_lim"), g, w):
-            check(a.dtype == e.dtype and a.shape == e.shape
-                  and torch.equal(a, e),
+            check(a.dtype == e.dtype and a.shape == e.shape,
+                  f"{kind} {name} differs from its plain version in dtype "
+                  f"or shape at {tuple(b['wear'].shape)} dims {dims}")
+            if a.numel():
+                err = max(err, int((a.long() - e.long()).abs().max()))
+            check(torch.equal(a, e),
                   f"{kind} {name} differs from its plain version at "
                   f"{tuple(b['wear'].shape)} dims {dims}")
+    return err
 
 
 def phase_kernel(torch, np, ops, ref, engine, fleet_dyn, fleet_cfg) -> float:
@@ -462,8 +495,11 @@ def fused_timing(torch, np, ops, ref, engine, eng, dyn, seed) -> dict:
     """Both fused selections at the zn540 grid under the lane table of
     ``dyn`` (one lane each): the kernel's time a call (CUDA events over
     back-to-back calls) and a launch (``torch.profiler``), the plain
-    version's, and the bound from these inputs.  No PyTorch call computes
-    either selection, so there is no library time."""
+    version's, and the bound from these inputs.  Before any timing, both
+    kernels are held bit for bit against their plain versions on the same
+    inputs (``max_abs_err``, 0), and the run fails on any difference.  No
+    PyTorch call computes either selection, so there is no library
+    time."""
     cfg = eng.cfg
     L = dyn.zone_pages.shape[0]
     rng = np.random.default_rng(seed)
@@ -485,6 +521,11 @@ def fused_timing(torch, np, ops, ref, engine, eng, dyn, seed) -> dict:
     b["k"].fill_(cfg.take)
     kw = dict(n_groups=cfg.n_groups, per_group=cfg.per_group,
               take=cfg.take, zone_groups=cfg.zone_groups)
+    # the kernels against their plain versions on these very inputs
+    before = dict(ops.counts)
+    err = compare_fused(torch, ops, ref, b, (
+        cfg.n_groups, cfg.per_group, cfg.take, cfg.zone_groups))
+    ops.counts.update(before)
     calls = {
         "alloc_select": (
             lambda: ops.alloc_select(b["wear"], b["avail"], b["lanes"],
@@ -534,7 +575,8 @@ def fused_timing(torch, np, ops, ref, engine, eng, dyn, seed) -> dict:
             L * 4 * cfg.parallelism if name == "grow_select" else 0)
         out[name] = dict(bound(bytes_moved, 2 * rows[name] * cfg.per_group),
                          ms=ms, device_us=dev_us, plain_ms=plain_ms,
-                         library_ms=None, lanes=L, rows=rows[name])
+                         library_ms=None, lanes=L, rows=rows[name],
+                         max_abs_err=err)
     return out
 
 
@@ -547,19 +589,20 @@ def empty_timing(torch, ops) -> dict:
     return {"ms": ms, "device_us": dev_us}
 
 
-def profile_dispatch(torch, eng, programs, dyn) -> dict:
-    """One dispatch under ``torch.profiler``: the card's busy time (the
-    sum of its kernel and copy spans, which do not overlap on one
-    stream) against the wall time, and the ``zns_alloc`` kernel's own
-    device time.  The profiler's host cost inflates the wall time, so
-    the busy share is a lower bound."""
+def profile_dispatch(torch, eng, programs, dyn, obs=None) -> dict:
+    """One dispatch (with telemetry ``obs`` when given) under
+    ``torch.profiler``: the card's busy time (the sum of its kernel and
+    copy spans, which do not overlap on one stream) against the wall
+    time, and the ``zns_alloc`` kernel's own device time.  The profiler's
+    host cost inflates the wall time, so the busy share is a lower
+    bound."""
     from torch.profiler import ProfilerActivity, profile
-    eng.run_batch(eng.init_state(), programs, dyn)
+    eng.run_batch(eng.init_state(), programs, dyn, obs=obs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_batch(eng.init_state(), programs, dyn)
+        eng.run_batch(eng.init_state(), programs, dyn, obs=obs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events()
@@ -784,6 +827,448 @@ def phase_shim(torch, np, S) -> None:
         f"recorder's one-program replay on cuda gives the same DLWA; "
         f"{n} commands: {secs / n * 1e3:.3f} ms a command on cuda, "
         f"{cpu_secs / n * 1e3:.3f} ms on cpu")
+
+
+# --------------------------------------------------------------------- #
+# phase 13: the allocator design-space search at zn540
+# --------------------------------------------------------------------- #
+#: phase 13's workloads: the reference's tools/bench.py full mode
+#: (bench_fleet, _obs_overhead, _evaluator_recompiles, _bench_array) on
+#: zn540 with 14 active zones; the telemetry overhead takes 3 paired
+#: timings where the reference takes 9
+FLEET_PARAMS = {
+    "device": "zn540", "max_active": 14, "n_devices": 4,
+    "fleet_sweep": {"configs": "grid_space()"},
+    "mixed_spec": {"specs": ["superblock", "block", "vchunk2"],
+                   "segments": [22, 11], "chunks": [1536],
+                   "parities": [False], "wear": [True]},
+    "evolve": {"space": "SearchSpace()", "random_n": 32, "seed": 0},
+    "obs": {"segments": [22, 11], "chunks": [1536, 768],
+            "parities": [False, True], "wear": [True, False],
+            "n_configs": 8, "pad_quantum": 64, "n_buckets": 32,
+            "overhead_pairs": 3},
+    "recompiles": {"segments": [22, 11], "chunks": [1536],
+                   "parities": [False, True], "wear": [True],
+                   "n_configs": 4, "n_devices": 2, "generations": 4},
+    "array": {"n_arrays": 8, "n_zones": 8, "pad_quantum": 64},
+    "storm": {"scenarios": [[3, 2, 0.5], [4, 2, 0.6]], "n_buckets": 16,
+              "n_tenants": 3},
+}
+FLEET_SECTIONS = ("fleet_sweep", "mixed_spec", "evolve", "obs",
+                  "recompiles", "array", "storm")
+#: golden keys that are clocks, or built from one: held at rel 1e-5 (as
+#: is every key ending in ``_s``)
+FLEET_TIME_KEYS = {"best_objective", "best_of_gen", "best_so_far",
+                   "rebuild_interference"}
+#: float64 statistics of the (bit-identical, sha256-checked) integer wear:
+#: held at rel 1e-12, since numpy 2.0 and 2.3 gave rows pooling more than
+#: 8192 elements 2-3 ulp apart from the same integers (assumed to be the
+#: order of the sum; numpy's source not checked)
+FLEET_STAT_KEYS = {"wear_cv", "mean_wear", "std_wear", "cv_wear"}
+
+
+class Dispatches:
+    """Stands in for ``eng.run_batch`` and records every dispatch: its
+    lanes and op steps, its seconds (between two ``sync`` calls when
+    given) and, with ``keep``, its programs, lane configs and outputs.
+    :meth:`close` restores the engine's own method."""
+
+    def __init__(self, eng, *, sync=None, keep: bool = False):
+        self.eng, self.sync, self.keep = eng, sync, keep
+        self.inner = eng.run_batch
+        self.shapes, self.seconds, self.outs = [], [], []
+        eng.run_batch = self
+
+    def __call__(self, state, programs, dyn=None, **kw):
+        if self.sync is not None:
+            self.sync()
+        t0 = time.perf_counter()
+        out = self.inner(state, programs, dyn, **kw)
+        if self.sync is not None:
+            self.sync()
+        self.seconds.append(time.perf_counter() - t0)
+        self.shapes.append([int(programs.shape[0]), int(programs.shape[1])])
+        if self.keep:
+            self.outs.append((programs, dyn, out))
+        return out
+
+    def close(self) -> None:
+        del self.eng.run_batch
+
+
+def dispatch_record(P, np, programs, dyn, out) -> dict:
+    """One dispatch's inputs and outputs as hashes: programs, every lane
+    config field, every state and trace field (and telemetry field)."""
+    rec = {"lanes": int(programs.shape[0]),
+           "op_steps": int(programs.shape[1]),
+           "real_ops": int((P.host(programs)[:, :, 0] != 0).sum()),
+           "programs_sha256": sha256(np, P.host(programs))}
+    parts = [("dyn", dyn), ("state", out[0]), ("trace", out[1])]
+    if len(out) > 2:
+        parts.append(("telemetry", out[2]))
+    for name, part in parts:
+        rec[f"{name}_sha256"] = {f: sha256(np, P.host(getattr(part, f)))
+                                 for f in type(part)._fields}
+    return rec
+
+
+def fleet_section(P, np, name: str) -> dict:
+    """Run phase 13's section ``name`` through package ``P`` (the port on
+    the card, or the reference when the golden file is written) and
+    summarise it.  Keys starting with ``_`` are the run's own (dispatch
+    seconds, plan counts, results to export) and stay out of the golden
+    file; ``dispatches`` lists every engine dispatch as ``[lanes, op
+    steps]``."""
+    E, FL, p = P.elements, P.fleet, FLEET_PARAMS
+    specs = (E.SUPERBLOCK, E.BLOCK, E.vchunk(2))
+    eng = P.make_engine(specs if name == "mixed_spec" else E.SUPERBLOCK)
+    spy = Dispatches(eng, sync=P.sync,
+                     keep=name in ("fleet_sweep", "mixed_spec", "obs"))
+    out: dict = {}
+    try:
+        if name in ("fleet_sweep", "mixed_spec"):
+            configs = (FL.grid_space() if name == "fleet_sweep" else
+                       FL.grid_space(segments=(22, 11), chunks=(1536,),
+                                     parities=(False,), wear=(True,),
+                                     specs=specs))
+            ev = FL.Evaluator(eng, n_devices=p["n_devices"])
+            t0 = time.perf_counter()
+            rows = ev.evaluate(configs)
+            out["_evaluate_s"] = time.perf_counter() - t0
+            out.update(dispatch_record(P, np, *spy.outs[-1]),
+                       rows=rows, ledger=ev.ledger())
+            out["_batch"] = spy.outs[-1][:2]
+        elif name == "evolve":
+            inner, results = P.evolve.evolve, []
+
+            def evolve(*args, **kw):
+                results.append(inner(*args, **kw))
+                return results[-1]
+            P.evolve.evolve = evolve
+            try:
+                out["comparison"] = P.evolve.evolve_vs_random(
+                    eng, space=FL.SearchSpace(), random_n=32, seed=0,
+                    n_devices=p["n_devices"])
+            finally:
+                P.evolve.evolve = inner
+            res = results[-1]
+            out.update(history=res.history, best=res.best,
+                       archive=res.archive, rows=res.rows,
+                       ledger=res.ledger, reached_target=res.reached_target)
+        elif name == "obs":
+            q = p["obs"]
+            configs = FL.grid_space(
+                segments=tuple(q["segments"]), chunks=tuple(q["chunks"]),
+                parities=tuple(q["parities"]),
+                wear=tuple(q["wear"]))[:q["n_configs"]]
+            programs, dyn, _ = FL.build_fleet_batch(
+                eng, configs, n_devices=p["n_devices"],
+                pad_quantum=q["pad_quantum"])
+            obs = P.obs.ObsConfig(q["n_buckets"], FL.N_TENANTS + 1)
+            runs = [FL.run_fleet(eng, programs, dyn=dyn,
+                                 n_tenants=FL.N_TENANTS,
+                                 parity_tenant=FL.N_TENANTS, obs=o)
+                    for o in (None, obs)]
+            off, on = (dispatch_record(P, np, *o) for o in spy.outs)
+            res = runs[1]
+            lanes = P.obs.fleet_timelines(obs, res.telemetry)
+            out.update(on, effect_free=all(
+                off[k] == on[k] for k in ("state_sha256", "trace_sha256")),
+                metrics=P.obs_export.fleet_metrics(res, eng).as_dict(),
+                fleet_timeline=P.obs.device_rollup(lanes),
+                tenant_timelines=P.obs.tenant_timelines(obs,
+                                                        res.telemetry))
+            out.update(_res=res, _eng=eng, _obs=obs, _configs=configs,
+                       _batch=(programs, dyn))
+        elif name == "recompiles":
+            q = p["recompiles"]
+            configs = FL.grid_space(
+                segments=tuple(q["segments"]), chunks=tuple(q["chunks"]),
+                parities=tuple(q["parities"]),
+                wear=tuple(q["wear"]))[:q["n_configs"]]
+            ev = FL.Evaluator(eng, n_devices=q["n_devices"],
+                              profiler=P.obs.Profiler())
+            gens, plans = [], []
+            for _ in range(q["generations"]):
+                gens.append(ev.evaluate(configs))
+                plans.append(ev.jit_cache()["run_programs"])
+            out.update(rows=gens[0], same_rows_every_generation=all(
+                g == gens[0] for g in gens), ledger=ev.ledger(),
+                _plans=plans, _profile=ev.profiler.snapshot())
+        elif name == "array":
+            q = p["array"]
+            arrays, commands = P.array_batch(eng, n_arrays=q["n_arrays"],
+                                             n_zones=q["n_zones"])
+            P.array.run_array_batch(arrays, pad_quantum=q["pad_quantum"])
+            out.update(
+                commands_per_array=[len(c) for c in commands],
+                lane_ops=sum(len(m) for a in arrays
+                             for m in a.member_programs()),
+                reports=[a.report() for a in arrays],
+                device_reports=[a.device_reports() for a in arrays])
+        elif name == "storm":
+            q = p["storm"]
+            scenarios = [P.array.StormScenario(
+                n_devices=d, n_zones_filled=z, occupancy=o)
+                for d, z, o in q["scenarios"]]
+            obs = P.obs.ObsConfig(q["n_buckets"], q["n_tenants"])
+            counter = P.obs.RecompileCounter(
+                run_programs=P.engine.run_programs,
+                simulate_fleet_ops=P.timing.simulate_fleet_ops)
+            first = P.array.rebuild_storm(eng, scenarios, obs=obs)
+            before = counter.counts()
+            second = P.array.rebuild_storm(eng, scenarios, obs=obs)
+            out.update(
+                scenarios=first["scenarios"],
+                telemetry_sha256=[{f: sha256(np, P.host(getattr(t, f)))
+                                   for f in type(t)._fields}
+                                  for t in first["telemetry"]],
+                second_call_equal=second["scenarios"] == first["scenarios"],
+                _plan_delta=counter.delta(before))
+        else:
+            raise KeyError(name)
+    finally:
+        spy.close()
+    out["dispatches"] = spy.shapes
+    out["_dispatch_s"] = spy.seconds
+    return out
+
+
+def golden_part(section: dict) -> dict:
+    """A section's summary as the golden file holds it: the run's own
+    keys dropped, JSON-typed (integer keys become strings)."""
+    return json.loads(json.dumps({k: v for k, v in section.items()
+                                  if not k.startswith("_")}))
+
+
+def fleet_mismatches(got, want, where: str, key: str = "") -> list:
+    """Where ``got`` differs from ``want``: clocks (keys ending in ``_s``
+    and :data:`FLEET_TIME_KEYS`) at rel 1e-5, wear statistics
+    (:data:`FLEET_STAT_KEYS`) at rel 1e-12, the rest exactly."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [f"{where}: keys differ"]
+        return [m for k in want
+                for m in fleet_mismatches(got[k], want[k], f"{where}.{k}",
+                                          k)]
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [f"{where}: lengths differ"]
+        return [m for i, (a, b) in enumerate(zip(got, want))
+                for m in fleet_mismatches(a, b, f"{where}[{i}]", key)]
+    if key.endswith("_s") or key in FLEET_TIME_KEYS:
+        if abs(got - want) > 1e-5 * abs(want):
+            return [f"{where}: {got!r} vs {want!r} (rel 1e-5)"]
+    elif key in FLEET_STAT_KEYS:
+        if abs(got - want) > 1e-12 * abs(want):
+            return [f"{where}: {got!r} vs {want!r} (rel 1e-12)"]
+    elif got != want:
+        return [f"{where}: {got!r} != {want!r}"]
+    return []
+
+
+def check_fleet_golden(got, want, where: str) -> None:
+    """``got`` equals ``want`` (:func:`fleet_mismatches` finds nothing);
+    else every mismatch is printed and the run fails."""
+    bad = fleet_mismatches(got, want, where)
+    for m in bad[:40]:
+        print(f"chip_smoke: mismatch: {m}", file=sys.stderr, flush=True)
+    check(not bad, f"{where}: {len(bad)} mismatches with the golden file")
+
+
+def torch_fleet_package(torch, np):
+    """Phase 13's view of the port: its modules and a zn540 engine
+    builder on the card."""
+    from types import SimpleNamespace
+
+    import repro_torch.array as A
+    import repro_torch.fleet as FL
+    import repro_torch.obs as O
+    from repro_torch.core import elements, engine, timing
+    from repro_torch.core.geometry import zn540
+    from repro_torch.obs import export
+    return SimpleNamespace(
+        fleet=FL, evolve=sys.modules["repro_torch.fleet.evolve"], obs=O,
+        obs_export=export, array=A, array_batch=A.array_batch,
+        elements=elements, engine=engine, timing=timing,
+        make_engine=lambda spec: engine.ZoneEngine(
+            *zn540(), spec, max_active=FLEET_PARAMS["max_active"],
+            device="cuda"),
+        host=lambda a: (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                        else np.asarray(a)),
+        sync=torch.cuda.synchronize)
+
+
+def phase_fleet(torch, np, ops, ref, engine, golden: dict) -> dict:
+    """Phase 13: every section of the design-space search at zn540 on the
+    card, each held to the reference's golden summary, with exactly one
+    ``alloc_select`` and one ``grow_select`` launch per op step of every
+    dispatch; then the telemetry export, the overhead pairs, the plan
+    counts and a profiled prefix of the fleet sweep."""
+    check(golden["params"] == json.loads(json.dumps(FLEET_PARAMS)),
+          "phase 13: the golden file's parameters are not this script's")
+    P = torch_fleet_package(torch, np)
+    got, secs = {}, {}
+    for name in FLEET_SECTIONS:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name] = fleet_section(P, np, name)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts = dict(ops.counts)
+        steps = sum(n for _, n in got[name]["dispatches"])
+        check(counts == {"alloc_select": steps, "grow_select": steps,
+                         "rows": 0},
+              f"phase 13: {name} launched {counts}, want {steps} each of "
+              f"alloc_select and grow_select over {steps} op steps")
+        got[name]["_counts"] = counts
+        check_fleet_golden(golden_part(got[name]), golden[name],
+                           f"phase 13: {name}")
+        shapes = [tuple(d) for d in got[name]["dispatches"]]
+        lane_steps = sum(lanes * n for lanes, n in shapes)
+        engine_s = sum(got[name]["_dispatch_s"])
+        log(f"phase 13: {name} == tests/data/torch_fleet_zn540.json "
+            f"({len(shapes)} dispatches of (lanes, op steps) {shapes} "
+            f"= {steps} op steps, {lane_steps} lane-op cells); zns_alloc "
+            f"launches {counts}: 1 alloc_select + 1 grow_select per op "
+            f"step; section {secs[name]:.3f} s, engine dispatches "
+            f"{engine_s:.3f} s = {lane_steps / engine_s:.1f} lane-ops/s "
+            f"({engine_s / steps * 1e3:.3f} ms per op step)")
+    sweep = got["fleet_sweep"]
+    log(f"phase 13: fleet sweep: {len(sweep['rows'])} configs x 4 devices "
+        f"= {sweep['lanes']} lanes x {sweep['op_steps']} op steps "
+        f"({sweep['real_ops']} real ops): Evaluator.evaluate "
+        f"{sweep['_evaluate_s']:.3f} s (engine {sweep['_dispatch_s'][0]:.3f}"
+        f" s + timing, decode and rollups)")
+    mixed = got["mixed_spec"]
+    log(f"phase 13: mixed spec (superblock + block + vchunk2 union): "
+        f"{len(mixed['rows'])} configs = {mixed['lanes']} lanes x "
+        f"{mixed['op_steps']} op steps: Evaluator.evaluate "
+        f"{mixed['_evaluate_s']:.3f} s (engine {mixed['_dispatch_s'][0]:.3f}"
+        f" s)")
+    evo = got["evolve"]["comparison"]
+    log(f"phase 13: evolve vs random-32: random best "
+        f"{evo['random']['best_objective']!r} ({evo['random']['best_config']}"
+        f", {evo['random']['n_dispatches']:.0f} dispatches), evolve best "
+        f"{evo['evolve']['best_objective']!r} in "
+        f"{evo['evolve']['generations']:.0f} generation(s), "
+        f"{evo['evolve']['n_dispatches']:.0f} dispatches, reached "
+        f"{evo['evolve']['reached_target']}; savings dispatches "
+        f"{evo['n_dispatches_savings']!r}, evals {evo['n_evals_savings']!r}"
+        f", lane-ops {evo['lane_ops_savings']!r}")
+
+    # (d) the telemetry export and its overhead: the median of paired
+    # off/on ratios (3 pairs; the reference takes 9)
+    tele = got["obs"]
+    check(tele["effect_free"], "phase 13: telemetry changed the dispatch")
+    res, eng, obs = tele["_res"], tele["_eng"], tele["_obs"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    labels = [f"{fc.describe()}/dev{d}" for fc in tele["_configs"]
+              for d in range(FLEET_PARAMS["n_devices"])]
+    prof = P.obs.Profiler()
+    emitted = P.obs.emit_fleet_obs(
+        res, eng, obs=obs, out_prefix=str(ROOT / "build" / "fleet_zn540"),
+        lane_labels=labels, profiler=prof,
+        recompiles=P.obs.RecompileCounter.engine_default(),
+        meta={"phase": "13", "device": torch.cuda.get_device_name(0)})
+    P.obs.validate_trace(json.loads(Path(emitted["trace"]).read_text()))
+    programs, dyn = tele["_batch"]
+
+    def once(o):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.fleet.run_fleet(eng, programs, dyn=dyn,
+                          n_tenants=P.fleet.N_TENANTS,
+                          parity_tenant=P.fleet.N_TENANTS, obs=o)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    before = dict(ops.counts)
+    t0 = time.perf_counter()
+    pairs = [(once(None), once(obs))
+             for _ in range(FLEET_PARAMS["obs"]["overhead_pairs"])]
+    ops.counts.update(before)
+    ratios = sorted(on / off for off, on in pairs)
+    overhead = ratios[len(ratios) // 2]
+    log(f"phase 13: telemetry: states and traces bit-identical on and off;"
+        f" {emitted['n_events']} trace events validated, written to "
+        f"build/fleet_zn540_trace.json and build/fleet_zn540_obs.json; "
+        f"run_fleet off/on seconds {pairs}: overhead (median of "
+        f"{len(pairs)} paired ratios; the reference's gate is 1.10 over 9) "
+        f"{overhead!r} (the pairs took {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    prefix = programs[:, :64]
+    prof_off = profile_dispatch(torch, eng, prefix, dyn)
+    prof_on = profile_dispatch(torch, eng, prefix, dyn, obs=obs)
+    if prof_off["device_events"] and prof_on["device_events"]:
+        log(f"phase 13: telemetry batch ({programs.shape[0]} lanes), a "
+            f"{prefix.shape[1]}-op-step prefix profiled off and on: "
+            f"{prof_off['device_events'] / prefix.shape[1]:.1f} and "
+            f"{prof_on['device_events'] / prefix.shape[1]:.1f} device events"
+            f" per op step; device busy {prof_off['busy_us']:.1f} us of "
+            f"{prof_off['wall_us']:.1f} off, {prof_on['busy_us']:.1f} us of "
+            f"{prof_on['wall_us']:.1f} on ({time.perf_counter() - t0:.1f} s "
+            f"with the profiler's decoding)")
+
+    rec = got["recompiles"]
+    check(len(set(rec["_plans"][1:])) == 1 and rec["_plans"][0]
+          == rec["_plans"][-1],
+          f"phase 13: launch plans grew across generations {rec['_plans']}")
+    storm = got["storm"]
+    check(sum(storm["_plan_delta"].values()) == 0,
+          f"phase 13: the second storm call added plans "
+          f"{storm['_plan_delta']}")
+    log(f"phase 13: plan stability: run_programs launch plans per "
+        f"generation {rec['_plans']} (4 configs x 2 devices); second "
+        f"rebuild_storm call added {storm['_plan_delta']}")
+    for sc in storm["scenarios"]:
+        log(f"phase 13: storm {sc['scenario']}: rebuild pages "
+            f"{sc['rebuild_pages']!r}, interference "
+            f"{sc['rebuild_interference']!r}")
+
+    # a 256-op-step prefix of the fleet sweep under the profiler
+    programs, dyn = sweep["_batch"]
+    eng = P.make_engine(P.elements.SUPERBLOCK)
+    prefix = programs[:, :256]
+    t0 = time.perf_counter()
+    prof = profile_dispatch(torch, eng, prefix, dyn)
+    log(f"phase 13: the profiled fleet sweep took "
+        f"{time.perf_counter() - t0:.1f} s with the profiler's decoding")
+    if prof["device_events"]:
+        log(f"phase 13: profiled a {prefix.shape[1]}-op-step prefix of the "
+            f"fleet sweep ({prefix.shape[0]} lanes): wall "
+            f"{prof['wall_us']:.1f} us, device busy {prof['busy_us']:.1f} "
+            f"us ({prof['busy_us'] / prof['wall_us']:.4f} of wall), "
+            f"{prof['device_events'] / prefix.shape[1]:.1f} device events "
+            f"per op step; alloc_select (launches, us each) "
+            f"{prof['alloc_select_kernel']}, grow_select "
+            f"{prof['grow_select_kernel']}")
+    else:
+        log("phase 13: profiler recorded no device events: device busy "
+            "share not measured")
+    # both selections against their plain versions, then timed, under
+    # the sweep's SUPERBLOCK lane table and the mixed spec's union table
+    t0 = time.perf_counter()
+    timed = fused_timing(torch, np, ops, ref, engine, eng, dyn, seed=13)
+    union = P.make_engine((P.elements.SUPERBLOCK, P.elements.BLOCK,
+                           P.elements.vchunk(2)))
+    timed_mixed = fused_timing(torch, np, ops, ref, engine, union,
+                               mixed["_batch"][1], seed=17)
+    log(f"phase 13: selection checks and timings took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for where, entry in (("fleet sweep", timed), ("mixed spec", timed_mixed)):
+        for kname, t in entry.items():
+            log(f"phase 13: zns_alloc {kname} at the {where} ({t['lanes']} "
+                f"lanes, {t['rows']} row selections): == plain version bit "
+                f"for bit (max_abs_err {t['max_abs_err']}); kernel "
+                f"{t['ms']:.6f} ms a call, device {t['device_us']} us a "
+                f"launch, plain {t['plain_ms']:.6f} ms, bound "
+                f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    err = max(t["max_abs_err"] for entry in (timed, timed_mixed)
+              for t in entry.values())
+    return {"counts": sweep["_counts"], "prof": prof, "timed": timed,
+            "timed_mixed": timed_mixed, "max_abs_err": err,
+            "overhead": overhead, "secs": secs}
 
 
 # --------------------------------------------------------------------- #
@@ -1570,6 +2055,12 @@ def main() -> int:
     del kv["eng"]
     phase_shim(torch, np, S)
 
+    # 13. the allocator design-space search at zn540, held to the
+    # reference's golden summary
+    fleet_golden = json.loads((ROOT / "tests" / "data" /
+                               "torch_fleet_zn540.json").read_text())
+    fleet = phase_fleet(torch, np, ops, ref, engine, fleet_golden)
+
     # 7. the attention kernels vs their plain versions; 7b. the scan
     attn_err = phase_attention(torch, np, fops, fref, dops, dref)
     ssm_err = phase_ssm(torch, np, sops, sref)
@@ -1659,7 +2150,8 @@ def main() -> int:
         "source": zns,
         "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
         "launches": zns_counts[kname],
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max([max_abs_err] + [f[kname]["max_abs_err"]
+                                            for f in fused.values()]),
         "ms": fused["wear"][kname]["ms"],
         "plain_ms": fused["wear"][kname]["plain_ms"],
         "bound_ms": fused["wear"][kname]["bound_ms"],
@@ -1673,12 +2165,27 @@ def main() -> int:
         "source": zns,
         "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
         "launches": kv["counts"][kname],
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max(max_abs_err, kv_t[kname]["max_abs_err"]),
         "ms": kv_t[kname]["ms"],
         "device_us": kv["prof"][f"{kname}_kernel"][1],
         "plain_ms": kv_t[kname]["plain_ms"],
         "bound_ms": kv_t[kname]["bound_ms"],
         "bound_by": kv_t[kname]["bound_by"],
+        "library_ms": None,
+    } for kname in ("alloc_select", "grow_select")]
+    zns_entries += [{
+        "name": f"zns_alloc/{kname}",
+        "path": "fleet_sweep_zn540",
+        "route": "cuda",
+        "source": zns,
+        "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
+        "launches": fleet["counts"][kname],
+        "max_abs_err": fleet["max_abs_err"],
+        "ms": fleet["timed"][kname]["ms"],
+        "device_us": fleet["prof"][f"{kname}_kernel"][1],
+        "plain_ms": fleet["timed"][kname]["plain_ms"],
+        "bound_ms": fleet["timed"][kname]["bound_ms"],
+        "bound_by": fleet["timed"][kname]["bound_by"],
         "library_ms": None,
     } for kname in ("alloc_select", "grow_select")]
     zns_entries.append({

@@ -1052,10 +1052,11 @@ def run_programs(cfg: EngineConfig, state: DeviceState, programs,
     ``dyn[k]``.  Returns ``(states, traces)`` with a leading lane axis
     on every field (``(L, n_ops, ...)`` for the traces).  The op loop
     reads nothing back from the device; the caller syncs when it reads
-    the results.  ``obs`` (in-scan telemetry) is not ported yet."""
-    if obs is not None:
-        raise NotImplementedError(
-            "obs= telemetry needs repro_torch.obs, which is not ported")
+    the results.  ``obs`` (a ``repro_torch.obs.recorder.ObsConfig``)
+    opts into per-lane telemetry folded after every op step: the return
+    becomes ``(states, traces, telemetry)``.  The recorder only *reads*
+    the device state, so states and traces are bit-identical with and
+    without it."""
     dev = resolve_device(device)
     if not isinstance(programs, torch.Tensor):
         programs = torch.from_numpy(np.asarray(programs, dtype=np.int32))
@@ -1074,11 +1075,23 @@ def run_programs(cfg: EngineConfig, state: DeviceState, programs,
                           ((), I32), ((), I32), ((), I32), ((), I32),
                           ((), I32), ((cfg.n_slots,), I32),
                           ((cfg.parallelism,), I32))])
+    tel = None
+    if obs is not None:
+        # imported lazily: repro_torch.obs depends on core, not vice versa
+        from repro_torch.obs import recorder
+        tel = recorder.telemetry_init(obs, L, dev)
     for i in range(n_ops):
-        s, tr = _apply_op_impl(cfg, ln, s, programs[:, i])
+        row = programs[:, i]
+        s2, tr = _apply_op_impl(cfg, ln, s, row)
+        if tel is not None:
+            tel = recorder.telemetry_update(obs, tel, s, s2, tr, row,
+                                            max(n_ops, 1), i)
+        s = s2
         for buf, val in zip(trace, tr):
             buf[:, i] = val
-    return s, trace
+    if tel is None:
+        return s, trace
+    return s, trace, tel
 
 
 def run_program(cfg: EngineConfig, state: DeviceState, program,
@@ -1086,15 +1099,15 @@ def run_program(cfg: EngineConfig, state: DeviceState, program,
                 device="cuda") -> Tuple[DeviceState, OpTrace]:
     """Execute one ``(n_ops, >=4)`` int32 program; ``dyn`` holds rank-0
     leaves.  Only the first four row columns are interpreted.  Returns
-    one device's state and ``(n_ops, ...)`` traces."""
+    one device's state and ``(n_ops, ...)`` traces (and, with ``obs``,
+    its telemetry as a third element)."""
     if not isinstance(program, torch.Tensor):
         program = torch.from_numpy(np.asarray(program, dtype=np.int32))
     if dyn is not None:
         dyn = DynConfig(*[torch.as_tensor(x)[None] for x in dyn])
-    states, traces = run_programs(cfg, state, program[None], dyn, obs=obs,
-                                  device=device)
-    return (DeviceState(*[t[0] for t in states]),
-            OpTrace(*[t[0] for t in traces]))
+    out = run_programs(cfg, state, program[None], dyn, obs=obs,
+                       device=device)
+    return tuple(type(part)(*[t[0] for t in part]) for part in out)
 
 
 # ----------------------------------------------------------------------- #

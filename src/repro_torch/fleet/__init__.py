@@ -1,5 +1,5 @@
-"""Multi-tenant fleet execution over the port's ZoneEngine (the port of
-``repro.fleet``, so far its runner and tenant encoding):
+"""Multi-tenant fleet simulation + allocator search over the port's
+ZoneEngine (the port of ``repro.fleet``):
 
 * :mod:`repro_torch.fleet.tenants` -- tenant-tagged width-5 op programs,
   the round-robin tenant interleaver, and the program-space RAID striper
@@ -7,22 +7,44 @@
 * :mod:`repro_torch.fleet.runner`  -- T tenants x N devices x K configs
   executed through ONE batched ``run_programs`` dispatch (heterogeneous
   per-lane geometries / allocators / element specs via ``DynConfig`` on
-  a padded union config) plus op-granular fleet timing.
+  a padded union config) plus op-granular fleet timing;
+* :mod:`repro_torch.fleet.search`  -- the :class:`SearchSpace` candidate
+  codec and the shared batched :class:`Evaluator` (one dispatch per
+  candidate set, fidelity-truncated programs, budget ledger), plus
+  grid/random enumeration over (tenant mix, zone geometry, chunk size,
+  parity, wear-awareness, element spec) scored on a weighted (DLWA,
+  wear spread, p99 tenant latency) objective, with the Pareto front of
+  non-dominated configs;
+* :mod:`repro_torch.fleet.evolve`  -- the adaptive strategy: evolutionary
+  proposals (mutation/crossover on the gene vector) with a
+  successive-halving rung schedule, a persistent cross-generation
+  Pareto archive, and seeded determinism.
 
-The allocator search (``repro.fleet.search``) and its evolutionary
-strategy (``repro.fleet.evolve``) are not ported yet.
+The reference's per-op legacy comparators (``run_configs_legacy``,
+``fleet_vs_legacy_speedup``) wait for the port of ``LegacyZNSDevice``.
 """
 
+from repro_torch.fleet.evolve import (EvolveParams, EvolveResult, evolve,
+                                      evolve_vs_random)
 from repro_torch.fleet.runner import (FleetResult, assert_all_ok,
                                       config_report, dispatch_cost,
                                       real_op_count, run_fleet)
+from repro_torch.fleet.search import (MIXES, N_TENANTS, OBJECTIVE_KEYS,
+                                      Evaluator, FleetConfig, SearchSpace,
+                                      build_fleet_batch, evaluate_configs,
+                                      grid_space, pareto_front,
+                                      random_space, score_rows)
 from repro_torch.fleet.tenants import (TENANT_COL, interleave_tenants,
                                        pad_programs, stripe_program,
                                        tag_tenant)
 
 __all__ = [
+    "EvolveParams", "EvolveResult", "evolve", "evolve_vs_random",
     "FleetResult", "assert_all_ok", "config_report", "dispatch_cost",
     "real_op_count", "run_fleet",
+    "MIXES", "N_TENANTS", "OBJECTIVE_KEYS", "Evaluator", "FleetConfig",
+    "SearchSpace", "build_fleet_batch", "evaluate_configs", "grid_space",
+    "pareto_front", "random_space", "score_rows",
     "TENANT_COL", "interleave_tenants", "pad_programs",
     "stripe_program", "tag_tenant",
 ]

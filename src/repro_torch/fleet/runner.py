@@ -19,6 +19,7 @@ erase-block erasures, times are seconds.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -58,7 +59,9 @@ class FleetResult:
     n_tenants: int           # real tenants (parity tag excluded)
     parity_tenant: int
     elem_mask: Optional[np.ndarray] = None  # (L, n_elements) real elements
-    #: per-lane telemetry (always None until repro_torch.obs is ported)
+    #: per-lane telemetry stack (repro_torch.obs TelemetryState with
+    #: (L, ...) fields) when the dispatch ran with obs=ObsConfig(...),
+    #: else None
     telemetry: Optional[object] = None
     #: the dispatch's static config + per-lane DynConfig (when known):
     #: what lets assert_all_ok replay a failing lane through the
@@ -160,11 +163,6 @@ class FleetResult:
         return out
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs repro_torch.obs, which is not ported")
-
-
 def run_fleet(eng: ZoneEngine, programs: np.ndarray, *,
               dyn: Optional[DynConfig] = None, n_tenants: int = 1,
               parity_tenant: Optional[int] = None, obs=None,
@@ -180,21 +178,31 @@ def run_fleet(eng: ZoneEngine, programs: np.ndarray, *,
     rows at ``t_read + t_xfer``); deferred-erase latency is not modeled
     (it is tracked as ``erase_delta`` instead).
 
-    ``obs`` (telemetry) and ``profiler`` (section timers) must be
-    ``None``: both wait for ``repro_torch.obs`` and raise
-    ``NotImplementedError`` otherwise.
+    ``obs`` (a ``repro_torch.obs.ObsConfig``) threads the telemetry
+    recorder through the dispatch; the result then carries per-lane
+    histogram stacks in ``telemetry``.  ``profiler`` (a
+    ``repro_torch.obs.Profiler``) splits the call into ``fleet.engine``
+    / ``fleet.timing`` / ``fleet.decode`` sections (the device is
+    synchronised inside each section so the wall times are honest).
     """
-    if obs is not None:
-        raise _not_ported("obs= telemetry")
-    if profiler is not None:
-        raise _not_ported("profiler= section timing")
     programs = np.asarray(programs, dtype=np.int32)
     if programs.ndim != 3 or programs.shape[-1] <= TENANT_COL:
         raise ValueError(f"want (L, n_ops, 5) programs, got "
                          f"{programs.shape}")
     if parity_tenant is None:
         parity_tenant = n_tenants
-    states, trace = eng.run_batch(eng.init_state(), programs, dyn)
+    sec = (profiler.section if profiler is not None
+           else (lambda _name: contextlib.nullcontext()))
+    dev = eng.device
+
+    def sync() -> None:
+        if profiler is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with sec("fleet.engine"):
+        out = eng.run_batch(eng.init_state(), programs, dyn, obs=obs)
+        states, trace = out[0], out[1]
+        telemetry = out[2] if obs is not None else None
+        sync()
 
     elem_mask = None
     if dyn is not None:
@@ -205,45 +213,48 @@ def run_fleet(eng: ZoneEngine, programs: np.ndarray, *,
                                     np.asarray(dyn.n_elements),
                                     np.asarray(dyn.per_group))
 
-    wp_b = trace.wp_before.cpu().numpy()
-    wp_a = trace.wp_after.cpu().numpy()
-    dummy = trace.dummy_delta.cpu().numpy()
-    op = programs[:, :, 0]
-    # pages the op physically moved: write advance, FINISH padding
-    # (RESET rewinds wp without moving pages -> clip), READ transfers
-    # (the n_pages column; reads never advance wp)
-    pages = (np.maximum(wp_a - wp_b, 0)
-             + np.where(op == zengine.OP_FINISH, dummy, 0)
-             + np.where(op == zengine.OP_READ, programs[:, :, 2], 0))
-    # per-op page service time: reads pay t_read, everything page-moving
-    # else programs flash
-    t_page = np.where(
-        op == zengine.OP_READ,
-        np.float32(eng.flash.t_read + eng.flash.t_xfer),
-        np.float32(eng.flash.t_prog + eng.flash.t_xfer))
-    dev = eng.device
-    completions, latencies, makespans = timing.simulate_fleet_ops(
-        trace.cols, torch.from_numpy(pages.astype(np.int32)).to(dev),
-        torch.from_numpy(programs[:, :, TENANT_COL].copy()).to(dev),
-        torch.from_numpy(t_page).to(dev), eng.flash.n_luns,
-        parity_tenant + 1)
-    return FleetResult(
-        programs=programs,
-        states=states,
-        ok=trace.ok.cpu().numpy(),
-        host_delta=trace.host_delta.cpu().numpy(),
-        dummy_delta=dummy,
-        erase_delta=trace.erase_delta.cpu().numpy(),
-        pages=pages,
-        completions=completions.cpu().numpy(),
-        latencies=latencies.cpu().numpy(),
-        makespans=makespans.cpu().numpy(),
-        n_tenants=n_tenants,
-        parity_tenant=parity_tenant,
-        elem_mask=elem_mask,
-        cfg=eng.cfg,
-        dyn=dyn,
-    )
+    with sec("fleet.timing"):
+        wp_b = trace.wp_before.cpu().numpy()
+        wp_a = trace.wp_after.cpu().numpy()
+        dummy = trace.dummy_delta.cpu().numpy()
+        op = programs[:, :, 0]
+        # pages the op physically moved: write advance, FINISH padding
+        # (RESET rewinds wp without moving pages -> clip), READ
+        # transfers (the n_pages column; reads never advance wp)
+        pages = (np.maximum(wp_a - wp_b, 0)
+                 + np.where(op == zengine.OP_FINISH, dummy, 0)
+                 + np.where(op == zengine.OP_READ, programs[:, :, 2], 0))
+        # per-op page service time: reads pay t_read, everything
+        # page-moving else programs flash
+        t_page = np.where(
+            op == zengine.OP_READ,
+            np.float32(eng.flash.t_read + eng.flash.t_xfer),
+            np.float32(eng.flash.t_prog + eng.flash.t_xfer))
+        completions, latencies, makespans = timing.simulate_fleet_ops(
+            trace.cols, torch.from_numpy(pages.astype(np.int32)).to(dev),
+            torch.from_numpy(programs[:, :, TENANT_COL].copy()).to(dev),
+            torch.from_numpy(t_page).to(dev), eng.flash.n_luns,
+            parity_tenant + 1)
+        sync()
+    with sec("fleet.decode"):
+        return FleetResult(
+            programs=programs,
+            states=states,
+            ok=trace.ok.cpu().numpy(),
+            host_delta=trace.host_delta.cpu().numpy(),
+            dummy_delta=dummy,
+            erase_delta=trace.erase_delta.cpu().numpy(),
+            pages=pages,
+            completions=completions.cpu().numpy(),
+            latencies=latencies.cpu().numpy(),
+            makespans=makespans.cpu().numpy(),
+            n_tenants=n_tenants,
+            parity_tenant=parity_tenant,
+            elem_mask=elem_mask,
+            telemetry=telemetry,
+            cfg=eng.cfg,
+            dyn=dyn,
+        )
 
 
 def config_report(res: FleetResult, eng: ZoneEngine,
@@ -286,7 +297,7 @@ def dispatch_cost(res: FleetResult) -> int:
     padded program length, NOP padding included.  This is the raw
     compute a batched evaluator invocation paid (every lane scans the
     full padded op axis), the unit the search-budget ledger in
-    ``repro.fleet.search.Evaluator`` accumulates."""
+    ``repro_torch.fleet.search.Evaluator`` accumulates."""
     return int(res.programs.shape[0] * res.programs.shape[1])
 
 

@@ -5,7 +5,9 @@ Each kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into
 covers the source, the headers beside it in its ``csrc/`` and the flags,
 so an edited source or header builds anew), and loaded with ``ctypes``.
 Nothing here runs when a module is imported: the CPU tests import every
-module on a machine with no compiler.
+module on a machine with no compiler.  :data:`BUILDS` counts the ``nvcc``
+runs of this process and their seconds (``repro_torch.obs.profile``
+reads them as compile time).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -25,6 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
+#: ``nvcc`` builds run by :func:`build` in this process, and their wall
+#: seconds summed (builds started together overlap, so the sum may exceed
+#: the time they took)
+BUILDS = {"count": 0, "seconds": 0.0}
+_builds_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -61,9 +70,13 @@ def build(source: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                               capture_output=True, text=True)
+        with _builds_lock:
+            BUILDS["count"] += 1
+            BUILDS["seconds"] += time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name}:\n"
                                f"{proc.stdout}{proc.stderr}")

@@ -34,10 +34,9 @@ Workloads: :data:`WORKLOADS` names three recorded application mixes --
 ``lsm`` (KVBench flush/compaction traffic), ``ckpt`` (checkpoint
 bursts + log appends on :mod:`repro_torch.storage.traffic` burst
 arrivals) and ``cache`` (Zipfian flash-cache admission/eviction);
-:func:`run_workload` emits the class-tagged dispatch + report.  The
-reference also registers each as a tenant mix of its allocator search
-(``repro.fleet.search.MIXES``); here :func:`_workload_mix` builds the
-same mix, and the registration comes with the port of the search.
+:func:`run_workload` emits the class-tagged dispatch + report; each is
+also registered as a tenant mix of the allocator search
+(``repro_torch.fleet.search.MIXES``).
 """
 
 from __future__ import annotations
@@ -331,8 +330,8 @@ def replay_recorders(eng: ZoneEngine,
     ``alloc_policy``, effective geometry); default lanes run the
     engine's primary config.  ``pad_quantum`` rounds the op axis as the
     reference does, so the traces line up with its replay.  ``obs`` /
-    ``profiler`` must be ``None`` (see
-    :func:`repro_torch.fleet.runner.run_fleet`).  ``check`` asserts every
+    ``profiler`` pass through to
+    :func:`repro_torch.fleet.runner.run_fleet`.  ``check`` asserts every
     real replayed op was legal -- a recorder/engine divergence fails
     loudly.  ``sanitize`` additionally audits every lane's final device
     state with the :mod:`repro_torch.check` sanitizer (host-side
@@ -504,7 +503,7 @@ def record_cache(dev: RecordingBackend, *, n_accesses: int = 300,
 
 
 # --------------------------------------------------------------------- #
-# fleet tenant mixes (the reference's repro.fleet.search.MIXES entries)
+# fleet tenant mixes (repro_torch.fleet.search.MIXES entries)
 # --------------------------------------------------------------------- #
 #: workload name -> tenant-class names (tag column order of
 #: run_workload's class-tagged dispatch)
@@ -587,24 +586,31 @@ def _mix_flash(page_bytes: int) -> FlashGeometry:
                          page_bytes=page_bytes)
 
 
-#: tenants of a search mix (the reference's repro.fleet.search.N_TENANTS)
-_MIX_TENANTS = 2
-
-
 def _workload_mix(name: str) -> Callable:
     """The tenant-mix builder of workload ``name``: ``build(eng, cap)``
-    records one instance per tenant on disjoint zone windows.  It joins
-    a search's mix table with the port of ``repro.fleet.search``."""
+    records one instance per tenant on disjoint zone windows."""
     def build(eng: ZoneEngine, cap: int) -> List[np.ndarray]:
+        from repro_torch.fleet.search import N_TENANTS
+
         progs = _recorded_mix(name, int(cap), eng.flash.page_bytes,
                               eng.cfg.n_zones, eng.cfg.max_active,
-                              _MIX_TENANTS)
+                              N_TENANTS)
         return [p.copy() for p in progs]
 
     build.__name__ = f"_mix_{name}"
     build.__doc__ = (f"Recorded {name!r} application traffic, one "
                      f"instance per tenant on disjoint zone windows.")
     return build
+
+
+def _register_mixes() -> None:
+    from repro_torch.fleet import search
+
+    for name in WORKLOADS:
+        search.MIXES.setdefault(name, _workload_mix(name))
+
+
+_register_mixes()
 
 
 # --------------------------------------------------------------------- #

@@ -36,6 +36,7 @@ from repro_torch.core import geometry as t_geometry
 from repro_torch.core import timing as t_timing
 from repro_torch.core import workloads as t_workloads
 from repro_torch.core import zns as t_zns
+from repro_torch.obs import ObsConfig
 from test_engine_diff import _FUZZ_ROW
 from test_silentzns_property import _ROW
 from test_union_spec import _FUZZ_ROW as _UNION_ROW
@@ -294,8 +295,9 @@ def test_dtypes_and_device_defaults():
     assert all(t.dtype == torch.int32 for t in state)
     assert all(t.dtype == torch.int32 for t in teng.dyn()
                if t.dtype != torch.bool)
-    with pytest.raises(NotImplementedError):
-        teng.run(state, pad([]), obs=object())
+    _, _, tel = teng.run(state, pad([]), obs=ObsConfig(n_buckets=2))
+    assert all(t.dtype == torch.int32 and t.device == state.elem_wear.device
+               for t in tel)
     if torch.cuda.is_available():
         assert T.init_state(teng.cfg).elem_wear.is_cuda
     else:

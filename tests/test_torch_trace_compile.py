@@ -395,24 +395,6 @@ def test_assert_all_ok_names_the_reference_error_class():
                                   RR.run_fleet(r_eng, rows, dyn=dyn_r))
 
 
-def test_obs_and_profiler_wait_for_the_obs_port():
-    _, t_eng = toy_engines(R_SUPERBLOCK, T_SUPERBLOCK)
-    rec = TS.RecordingBackend(t_eng.flash, zone_pages=t_eng.cfg.zone_pages,
-                              n_zones=4, max_active=3)
-    rec.zone_write(0, 4)
-    for kw in ({"obs": object()}, {"profiler": object()}):
-        with pytest.raises(NotImplementedError, match="repro_torch.obs"):
-            TS.replay_recorders(t_eng, [rec], **kw)
-        with pytest.raises(NotImplementedError, match="repro_torch.obs"):
-            TS.run_workload(t_eng, "cache", **kw)
-        with pytest.raises(NotImplementedError, match="repro_torch.obs"):
-            TR.run_fleet(t_eng, TS.compile.pad_programs([rec.program()]),
-                         **kw)
-    with pytest.raises(NotImplementedError, match="repro_torch.obs"):
-        t_eng.run_batch(t_eng.init_state(), rec.program()[None],
-                        obs=object())
-
-
 def test_cuda_engine_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: nothing to refuse")
