@@ -7,10 +7,10 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``);
 run from a checkout, since it imports ``src/repro_torch``.  Phases, each
 of which stops the run with a non-zero exit when it fails:
 
-1. build the four kernels from ``src/`` (``zns_alloc``, flash attention,
-   decode attention, ``ssm_scan``), one ``nvcc`` each, all started
-   together, and print each build time; beside them, ``ptxas -v`` of all
-   four sources (registers and spills of each kernel);
+1. build the five kernels from ``src/`` (``zns_alloc``, flash attention,
+   decode attention, ``ssm_scan``, ``page_clock``), one ``nvcc`` each, all
+   started together, and print each build time; beside them, ``ptxas -v``
+   of all five sources (registers and spills of each kernel);
 2. hold the ``zns_alloc`` kernels to their plain PyTorch versions, bit
    for bit, on CUDA tensors: the row selection at the main path's zn540
    shapes and at random ragged shapes, the fused ALLOC and grow
@@ -79,6 +79,28 @@ of which stops the run with a non-zero exit when it fails:
     both fused selections held bit for bit against their plain versions
     and timed at (a)'s 128-lane SUPERBLOCK table and (b)'s 48-lane union
     table;
+14. the paper's per-op benchmarks and the legacy oracles
+    (:data:`WORKLOAD_PARAMS`), each section held to
+    ``tests/data/torch_workloads_zn540.json`` (counts, DLWA and page
+    totals exactly, clocks and interference factors at rel 1e-5, wear
+    statistics at rel 1e-12): (a) Fig. 4b / 7d at zn540, concurrency
+    1-7, FIXED and SUPERBLOCK, through the device shim, the per-op
+    ``LegacyZNSDevice`` and the batched engine sweep, which must agree
+    exactly; (b) Fig. 9's FIO grid on custom16 through the legacy device
+    and the engine (one geometry row through the shim too); (c) Table 4's
+    allocation latency on both devices for four specs; (d)-(f) the
+    engine-vs-legacy comparators of the per-op workloads, the fleet
+    sweep (32 configs and the 12-config union) and the arrays, each with
+    its DLWA or report exactness asserts, and no new launch plan across
+    the interference sweep's timed repeats; (g) phase 11's three
+    traditional lanes replayed through ``LegacyZNSDevice``, each with its
+    dispatch's DLWA.  Every page-granular timing call is one
+    ``page_clock`` launch and every legacy selection one ``zns_alloc``
+    row launch (counts zeroed before and read after each section); (h)
+    ``page_clock`` against its plain version, bit for bit, on 16 random
+    padded batches and on a 20,000-request prefix of (a)'s FIXED
+    concurrency-7 contended stream (473,088 requests), then timed on that
+    whole stream beside its bound and the plain loop on the prefix;
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at both serving paths' shapes (granite's and
    the Jamba cut's: S 2048, G 8), at S and Sk on, one before and one
@@ -133,9 +155,10 @@ The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
 per kernel and path (``path``: ``paper_report``, ``kv_zn540`` and
 ``fleet_sweep_zn540`` for the two fused ``zns_alloc`` selections, the
-Pallas contract for its row
-kernel, granite-3-8b, the Jamba cut), each with that path's launches and
-the times at its shapes -- and ``{"ok": true, "device": {...}}``.
+Pallas contract and phase 14's legacy ALLOCs for its row kernel,
+granite-3-8b, the Jamba cut, phase 14 for ``page_clock``), each with that
+path's launches and the times at its shapes -- and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -784,7 +807,9 @@ def phase_kv(torch, np, S, headline, ops, golden: dict) -> dict:
         log("phase 11: profiler recorded no device events: device busy "
             "share not measured")
     return {"eng": eng, "dyn": stack_dyn(dyns), "counts": counts,
-            "prof": prof, "dispatch_s": dispatch_s, "steps": steps}
+            "prof": prof, "dispatch_s": dispatch_s, "steps": steps,
+            "recs": recs, "lanes": {(lane["workload"], lane["policy"]):
+                                    lane["metrics"] for lane in got}}
 
 
 def phase_shim(torch, np, S) -> None:
@@ -1041,22 +1066,24 @@ def golden_part(section: dict) -> dict:
                                   if not k.startswith("_")}))
 
 
-def fleet_mismatches(got, want, where: str, key: str = "") -> list:
+def fleet_mismatches(got, want, where: str, key: str = "",
+                     time_keys=FLEET_TIME_KEYS) -> list:
     """Where ``got`` differs from ``want``: clocks (keys ending in ``_s``
-    and :data:`FLEET_TIME_KEYS`) at rel 1e-5, wear statistics
+    and ``time_keys``) at rel 1e-5, wear statistics
     (:data:`FLEET_STAT_KEYS`) at rel 1e-12, the rest exactly."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or sorted(got) != sorted(want):
             return [f"{where}: keys differ"]
         return [m for k in want
                 for m in fleet_mismatches(got[k], want[k], f"{where}.{k}",
-                                          k)]
+                                          k, time_keys)]
     if isinstance(want, list):
         if not isinstance(got, list) or len(got) != len(want):
             return [f"{where}: lengths differ"]
         return [m for i, (a, b) in enumerate(zip(got, want))
-                for m in fleet_mismatches(a, b, f"{where}[{i}]", key)]
-    if key.endswith("_s") or key in FLEET_TIME_KEYS:
+                for m in fleet_mismatches(a, b, f"{where}[{i}]", key,
+                                          time_keys)]
+    if key.endswith("_s") or key in time_keys:
         if abs(got - want) > 1e-5 * abs(want):
             return [f"{where}: {got!r} vs {want!r} (rel 1e-5)"]
     elif key in FLEET_STAT_KEYS:
@@ -1067,10 +1094,11 @@ def fleet_mismatches(got, want, where: str, key: str = "") -> list:
     return []
 
 
-def check_fleet_golden(got, want, where: str) -> None:
+def check_fleet_golden(got, want, where: str,
+                       time_keys=FLEET_TIME_KEYS) -> None:
     """``got`` equals ``want`` (:func:`fleet_mismatches` finds nothing);
     else every mismatch is printed and the run fails."""
-    bad = fleet_mismatches(got, want, where)
+    bad = fleet_mismatches(got, want, where, time_keys=time_keys)
     for m in bad[:40]:
         print(f"chip_smoke: mismatch: {m}", file=sys.stderr, flush=True)
     check(not bad, f"{where}: {len(bad)} mismatches with the golden file")
@@ -1269,6 +1297,498 @@ def phase_fleet(torch, np, ops, ref, engine, golden: dict) -> dict:
     return {"counts": sweep["_counts"], "prof": prof, "timed": timed,
             "timed_mixed": timed_mixed, "max_abs_err": err,
             "overhead": overhead, "secs": secs}
+
+
+# --------------------------------------------------------------------- #
+# phase 14: the paper's per-op benchmarks and the legacy oracles
+# --------------------------------------------------------------------- #
+#: phase 14's workloads: ``benchmarks/paper_figures.py``'s Fig. 4b / 7d
+#: (``fig4b_7d_interference``) and Fig. 9 (``fig9_throughput``)
+#: parameters, Table 4's benchmark on zn540 for four specs, and the
+#: reference's three engine-vs-legacy comparators: the per-op workloads'
+#: at its defaults (``BENCH_zoneengine.json``'s sizes), the fleet's at
+#: ``tools/bench.py``'s full mode with 1 timed repeat where the bench
+#: takes 3 (the smoke run's time), and the arrays' at its defaults with
+#: two timed legacy arrays (the bench's full mode takes 8 zones an array,
+#: the defaults 4)
+WORKLOAD_PARAMS = {
+    "interference": {"device": "zn540", "max_active": 28,
+                     "concurrency": [1, 2, 3, 4, 5, 6, 7],
+                     "specs": ["fixed", "superblock"],
+                     "fill_occupancy": 0.4},
+    "fio": {"device": "custom16", "spec": "fixed", "max_active": 64,
+            "geometries": [[16, 1], [16, 2], [8, 1], [8, 2], [4, 1],
+                           [4, 2]],
+            "request_kib": [4, 16, 64], "jobs": [1, 2, 4, 8, 16],
+            "mib_per_job": 4, "shim_geometry": [16, 1]},
+    "alloc_latency": {"device": "zn540", "max_active": 14, "n_allocs": 32,
+                      "specs": ["fixed", "superblock", "vchunk2",
+                                "block"]},
+    "engine_vs_legacy": {"occupancies": 16, "n_zones": 8,
+                         "concurrencies": [1, 2, 4, 7], "repeats": 3},
+    "fleet_vs_legacy": {"repeats": 1,
+                        "sweep": {"configs": "grid_space()",
+                                  "legacy_configs": 8},
+                        "mixed": {"specs": ["superblock", "block",
+                                            "vchunk2"],
+                                  "segments": [22, 11], "chunks": [1536],
+                                  "parities": [False], "wear": [True]}},
+    "array_vs_legacy": {"n_arrays": 8, "n_zones": 4, "legacy_arrays": 2,
+                        "repeats": 3},
+    "kv_legacy": {"lanes": ["lsm", "ckpt", "cache"],
+                  "spec": "traditional_spec(zn540)"},
+}
+WORKLOAD_SECTIONS = tuple(WORKLOAD_PARAMS)
+#: golden keys that are built from clocks (the interference factor, a
+#: ratio of two throughputs): held at rel 1e-5, as is every key ending in
+#: ``_s``
+WORKLOAD_TIME_KEYS = {"interference"}
+#: the comparators' non-timing results, held to the golden file exactly
+SPEEDUP_KEYS = {
+    "engine_vs_legacy": ("dlwa_ops", "interference_ops",
+                         "interference_dispatches",
+                         "interference_recompiles"),
+    "fleet_vs_legacy": ("n_configs", "n_devices", "fleet_ops",
+                        "legacy_timed_configs", "legacy_scale"),
+    "array_vs_legacy": ("n_arrays", "lane_ops", "legacy_timed_arrays",
+                        "legacy_scale"),
+}
+#: the page_clock check's random batches and its prefix of the real stream
+PAGE_CLOCK_CASES, PAGE_CLOCK_PREFIX = 16, 20_000
+
+
+def spec_named(E, name: str):
+    return {"fixed": E.FIXED, "superblock": E.SUPERBLOCK, "block": E.BLOCK,
+            "vchunk2": E.vchunk(2)}[name]
+
+
+def workloads_section(P, np, name: str, recs=None) -> dict:
+    """Run phase 14's section ``name`` through package ``P`` (the port on
+    the card, or the reference when the golden file is written) and
+    summarise it.  Keys starting with ``_`` are the run's own (timings,
+    counts) and stay out of the golden file.  ``recs`` are the KV
+    recorders to replay in ``kv_legacy`` (recorded anew when None)."""
+    W, E, G, p = P.workloads, P.elements, P.geometry, WORKLOAD_PARAMS[name]
+    out: dict = {}
+    if name == "interference":
+        flash, zone = G.zn540()
+        kw = {"max_active": p["max_active"]}
+        for spec_name in p["specs"]:
+            spec = spec_named(E, spec_name)
+
+            def point(dev, c):
+                return W.interference_benchmark(
+                    dev, concurrency=c, fill_occupancy=p["fill_occupancy"])
+            shim = [point(P.shim(flash, zone, spec, **kw), c)
+                    for c in p["concurrency"]]
+            legacy = [point(P.legacy(flash, zone, spec, **kw), c)
+                      for c in p["concurrency"]]
+            sweep = W.interference_sweep_engine(
+                P.make_engine(flash, zone, spec, **kw), p["concurrency"],
+                fill_occupancy=p["fill_occupancy"])
+            out[spec_name] = {"rows": shim, "legacy_equal": legacy == shim,
+                              "sweep_equal": sweep == shim}
+        out["_fill"] = max(1, int(round(zone.zone_pages(flash)
+                                        * p["fill_occupancy"])))
+    elif name == "fio":
+        flash = G.custom16()
+        rows, eng_rows, shim_rows = [], [], []
+        kw = {"max_active": p["max_active"]}
+        fixed = spec_named(E, p["spec"])
+        for par, segs in p["geometries"]:
+            geom = G.ZoneGeometry(parallelism=par, n_segments=segs)
+            where = geom.describe(flash)
+            eng = P.make_engine(flash, geom, fixed, **kw)
+            for req in p["request_kib"]:
+                for jobs in p["jobs"]:
+                    dev = P.legacy(flash, geom, fixed, **kw)
+                    if jobs > dev.n_zones:
+                        continue
+                    bkw = {"request_kib": req, "n_jobs": jobs,
+                           "mib_per_job": p["mib_per_job"]}
+                    rows.append(dict(W.write_benchmark(dev, **bkw),
+                                     geometry=where))
+                    eng_rows.append(dict(W.write_benchmark_engine(eng,
+                                                                  **bkw),
+                                         geometry=where))
+                    if [par, segs] == p["shim_geometry"]:
+                        shim_rows.append(dict(W.write_benchmark(
+                            P.shim(flash, geom, fixed, **kw), **bkw),
+                            geometry=where))
+        shim_where = shim_rows[0]["geometry"]
+        out.update(rows=rows, engine_equal=eng_rows == rows,
+                   shim_equal=shim_rows == [r for r in rows
+                                            if r["geometry"] == shim_where],
+                   shim_geometry=shim_where)
+    elif name == "alloc_latency":
+        flash, zone = G.zn540()
+        kw = {"max_active": p["max_active"]}
+        for spec_name in p["specs"]:
+            spec = spec_named(E, spec_name)
+            for path, make in (("shim", P.shim), ("legacy", P.legacy)):
+                dev = make(flash, zone, spec, **kw)
+                r = W.alloc_latency_benchmark(dev, n_allocs=p["n_allocs"])
+                out[f"{spec_name}_{path}"] = {"n_allocs": r["n_allocs"]}
+                out[f"_{spec_name}_{path}"] = r
+    elif name == "engine_vs_legacy":
+        rep = W.engine_vs_legacy_speedup(
+            occupancies=tuple(np.linspace(0.05, 0.95, p["occupancies"])),
+            n_zones=p["n_zones"], concurrencies=tuple(p["concurrencies"]),
+            repeats=p["repeats"], **P.kw)
+        out.update({k: rep[k] for k in SPEEDUP_KEYS[name]}, _rep=rep)
+    elif name == "fleet_vs_legacy":
+        S = P.fleet_search
+        inner, calls = S.run_configs_legacy, []
+
+        def spy(*args, **kw):
+            calls.append(inner(*args, **kw))
+            return calls[-1]
+        q = p["mixed"]
+        specs = tuple(spec_named(E, s) for s in q["specs"])
+        runs = {
+            "sweep": {"legacy_configs": p["sweep"]["legacy_configs"]},
+            "mixed": {"configs": S.grid_space(
+                segments=tuple(q["segments"]), chunks=tuple(q["chunks"]),
+                parities=tuple(q["parities"]), wear=tuple(q["wear"]),
+                specs=specs), "specs": specs}}
+        S.run_configs_legacy = spy
+        try:
+            for run, kw in runs.items():
+                calls.clear()
+                rep = S.fleet_vs_legacy_speedup(repeats=p["repeats"],
+                                                **kw, **P.kw)
+                # the first legacy pass is the oracle over every config
+                out[run] = dict({k: rep[k] for k in SPEEDUP_KEYS[name]},
+                                legacy_rows=calls[0])
+                out[f"_{run}"] = rep
+        finally:
+            S.run_configs_legacy = inner
+    elif name == "array_vs_legacy":
+        rep = P.array.array_vs_legacy_speedup(
+            n_arrays=p["n_arrays"], n_zones=p["n_zones"],
+            legacy_arrays=p["legacy_arrays"], repeats=p["repeats"], **P.kw)
+        out.update({k: rep[k] for k in SPEEDUP_KEYS[name]}, _rep=rep)
+    elif name == "kv_legacy":
+        kvp = json.loads((ROOT / "tests" / "data" /
+                          "torch_kv_zn540.json").read_text())["params"]
+        eng = P.headline_engine()
+        if recs is None:
+            recs = kv_recorders(P.storage, eng, kvp)
+        spec = P.headline.traditional_spec(eng.zone_geom)
+        Z, lanes = P.engine, []
+        for lane in p["lanes"]:
+            leg = P.legacy(eng.flash, eng.zone_geom, spec,
+                           max_active=kvp["max_active"])
+            program = recs[lane].program()
+            for op, zone, n, flags, _tenant in program.tolist():
+                if op == Z.OP_WRITE:
+                    leg.zone_write(zone, n, host=bool(flags & Z.F_HOST))
+                elif op == Z.OP_FINISH:
+                    leg.zone_finish(zone)
+                elif op == Z.OP_RESET:
+                    leg.zone_reset(zone)
+                elif op == Z.OP_READ:
+                    leg.zone_read(zone, np.arange(n))
+            lanes.append({"workload": lane, "n_ops": len(program),
+                          "program_sha256": sha256(np, program),
+                          "dlwa": leg.dlwa, "host_pages": leg.host_pages,
+                          "dummy_pages": leg.dummy_pages,
+                          "block_erases": leg.block_erases,
+                          "alloc_calls": leg.alloc_calls})
+        out["lanes"] = lanes
+    else:
+        raise KeyError(name)
+    return out
+
+
+def torch_workloads_package(device: str = "cuda"):
+    """Phase 14's view of the port, every device, engine and comparator
+    on ``device``."""
+    from types import SimpleNamespace
+
+    import repro_torch.array as A
+    import repro_torch.fleet as FL
+    import repro_torch.storage as S
+    from repro_torch.core import (elements, engine, geometry, headline,
+                                  timing, workloads)
+    from repro_torch.core.device import ZNSDevice
+    from repro_torch.core.device_legacy import LegacyZNSDevice
+    return SimpleNamespace(
+        workloads=workloads, elements=elements, geometry=geometry,
+        engine=engine, timing=timing, headline=headline, fleet=FL,
+        fleet_search=sys.modules["repro_torch.fleet.search"], array=A,
+        storage=S, kw={"device": device},
+        shim=lambda *a, **kw: ZNSDevice(*a, device=device, **kw),
+        legacy=lambda *a, **kw: LegacyZNSDevice(*a, device=device, **kw),
+        make_engine=lambda *a, **kw: workloads.make_engine(
+            *a, device=device, **kw),
+        headline_engine=lambda: headline.build_headline_engine(
+            device=device),
+        legacy_cls=LegacyZNSDevice)
+
+
+class Instances:
+    """Keeps every instance of ``cls`` built while it is open (the legacy
+    devices a comparator builds inside), so a section can read their
+    counters; :meth:`close` restores the class."""
+
+    def __init__(self, cls):
+        self.cls, self.made, self.init = cls, [], cls.__init__
+        made, init = self.made, self.init
+
+        def __init__(obj, *args, **kw):
+            init(obj, *args, **kw)
+            made.append(obj)
+        cls.__init__ = __init__
+
+    def close(self) -> None:
+        self.cls.__init__ = self.init
+
+
+class Calls:
+    """Counts the calls of ``module.name`` while open."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
+        self.inner = getattr(module, name)
+
+        def counted(*args, **kw):
+            self.n += 1
+            return self.inner(*args, **kw)
+        setattr(module, name, counted)
+
+    def close(self) -> None:
+        setattr(self.module, self.name, self.inner)
+
+
+def page_clock_batch(torch, np, rng, dev: str):
+    """A random right-padded request batch (1-64 device rows, 1-5,000
+    requests, every op code, 1-16 LUNs and channels) and its times."""
+    nd, n = int(rng.integers(1, 65)), int(rng.integers(1, 5001))
+    n_luns, n_ch = int(rng.integers(1, 17)), int(rng.integers(1, 17))
+    lengths = rng.integers(0, n + 1, nd)
+    lengths[rng.integers(nd)] = n               # one row unpadded
+    t_op = rng.uniform(1e-6, 5e-3, 3).astype(np.float32)
+    t_x = np.float32(rng.uniform(1e-6, 1e-4))
+    ops_ = rng.integers(0, 3, (nd, n), dtype=np.int32)
+    ops_[0, : min(n, 3)] = np.arange(min(n, 3))  # every op code present
+    arrs = [ops_, rng.integers(0, n_luns, (nd, n), dtype=np.int32),
+            rng.integers(0, n_ch, (nd, n), dtype=np.int32),
+            np.arange(n)[None, :] < lengths[:, None]]
+    return ([torch.from_numpy(a).to(dev) for a in arrs]
+            + [torch.from_numpy(t_op).to(dev), torch.tensor(t_x).to(dev),
+               n_luns, n_ch])
+
+
+def phase_page_clock(torch, np, P, pc_ops, pc_ref) -> dict:
+    """Phase 14 (h): ``page_clock`` against its plain version, bit for
+    bit, on random padded batches and on a prefix of the real FIXED
+    concurrency-7 contended stream of (a); then timed on that whole
+    stream."""
+    rng = np.random.default_rng(14)
+    before = pc_ops.launches
+    n_req = 0
+    for _ in range(PAGE_CLOCK_CASES):
+        args = page_clock_batch(torch, np, rng, "cuda")
+        got = pc_ops.simulate_fleet(*args)
+        # the plain version on the same inputs, moved to the CPU (the
+        # same f32 additions; it steps ~3x faster there than on the card)
+        want = pc_ref.simulate_fleet_ref(*[a.cpu() if hasattr(a, "cpu")
+                                           else a for a in args])
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"phase 14: page_clock differs from its plain version on a "
+              f"{tuple(args[0].shape)} batch")
+        n_req += args[0].numel()
+    # the real stream: FIXED at concurrency 7, host writes + FINISH pads
+    flash, zone = P.geometry.zn540()
+    q = WORKLOAD_PARAMS["interference"]
+    dev = P.legacy(flash, zone, P.elements.FIXED, max_active=q["max_active"])
+    c = max(q["concurrency"])
+    fill = max(1, int(round(dev.zone_pages * q["fill_occupancy"])))
+    for z in range(c):
+        dev.zone_write(z, fill)
+    traces = [dev.zone_write(z, fill, trace=True) for z in range(c, 2 * c)]
+    traces += [dev.zone_finish(z, trace=True) for z in range(c)]
+    ops_, luns, chans, _ = P.timing._merge(traces, True)
+    full = [torch.from_numpy(a)[None].cuda() for a in (ops_, luns, chans)]
+    full.append(torch.ones_like(full[0], dtype=torch.bool))
+    times = [P.timing._t_op(flash, torch.device("cuda")),
+             torch.tensor(flash.t_xfer, dtype=torch.float32, device="cuda"),
+             flash.n_luns, flash.n_channels]
+    k = PAGE_CLOCK_PREFIX
+    prefix = [a[:, :k].contiguous() for a in full]
+    got = pc_ops.simulate_fleet(*prefix, *times)
+    got_full = pc_ops.simulate_fleet(*full, *times)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pc_ref.simulate_fleet_ref(*prefix, *times)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and torch.equal(got_full[0][:, :k], want[0]),
+          "phase 14: page_clock differs from its plain version on the "
+          "real stream's prefix")
+    n = full[0].shape[1]
+    ms = cuda_ms(torch, lambda: pc_ops.simulate_fleet(*full, *times),
+                 iters=10)
+    prefix_ms = cuda_ms(torch, lambda: pc_ops.simulate_fleet(*prefix,
+                                                             *times))
+    dev_us = device_us(torch, lambda: pc_ops.simulate_fleet(*full, *times),
+                       "page_clock", reps=5)
+    pc_ops.launches = before                 # checks and timings
+    # each input read once (ops, luns, channels: 4 bytes; valid: 1), each
+    # output written once (a completion, 4 bytes; one makespan); the max
+    # and two adds of a request
+    return dict(bound(17 * n + 4, 3 * n), requests=n, ms=ms,
+                prefix_ms=prefix_ms, plain_ms=plain_ms, prefix=k,
+                device_us=dev_us, ns_per_request=ms / n * 1e6,
+                random_requests=n_req, max_abs_err=0.0)
+
+
+def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
+                    kv: dict) -> dict:
+    """Phase 14: every section of the paper's per-op benchmarks and the
+    legacy oracles on the card, each held to the reference's golden
+    summary; each page-granular timing call one ``page_clock`` launch and
+    each legacy allocation one ``zns_alloc`` row launch; then ``page_clock``
+    against its plain version and timed."""
+    check(golden["params"] == json.loads(json.dumps(WORKLOAD_PARAMS)),
+          "phase 14: the golden file's parameters are not this script's")
+    P = torch_workloads_package()
+    card = gpu_name_and_limit()
+    got, secs, counts = {}, {}, {}
+    for name in WORKLOAD_SECTIONS:
+        made = Instances(P.legacy_cls)
+        timed = Calls(P.timing, "simulate_fleet")
+        ops.reset_launches()
+        pc_ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            got[name] = workloads_section(
+                P, np, name, recs=kv["recs"] if name == "kv_legacy" else None)
+            torch.cuda.synchronize()
+        finally:
+            made.close()
+            timed.close()
+        secs[name] = time.perf_counter() - t0
+        c = counts[name] = dict(ops.counts, page_clock=pc_ops.launches)
+        allocs = sum(d.allocate_calls for d in made.made)
+        check(c["page_clock"] == timed.n and c["rows"] == allocs
+              and c["alloc_select"] == c["grow_select"],
+              f"phase 14: {name} launched {c}, want page_clock once per "
+              f"page-granular timing call ({timed.n}), a row selection "
+              f"per legacy allocate call ({allocs}) and one grow per "
+              f"ALLOC selection")
+        check_fleet_golden(golden_part(got[name]), golden[name],
+                           f"phase 14: {name}",
+                           time_keys=WORKLOAD_TIME_KEYS)
+        log(f"phase 14: {name} == tests/data/torch_workloads_zn540.json; "
+            f"launches {c} ({len(made.made)} legacy devices, {allocs} "
+            f"allocate calls); {secs[name]:.3f} s ({card})")
+
+    # (a) Fig. 4b / 7d: the three paths agree exactly
+    intf = got["interference"]
+    for spec_name in WORKLOAD_PARAMS["interference"]["specs"]:
+        s = intf[spec_name]
+        check(s["legacy_equal"] and s["sweep_equal"],
+              f"phase 14: the interference paths disagree on {spec_name}")
+    fill = intf["_fill"]
+    log(f"phase 14 (a): Fig. 4b / 7d at zn540 (fill {fill} pages a zone, "
+        f"max_active 28): shim == legacy == engine sweep, exactly; "
+        f"concurrency | FIXED interference, dummy pages | SUPERBLOCK "
+        f"interference, dummy pages | page steps (FIXED base + contended)")
+    page_steps = 0
+    for fx, sb in zip(intf["fixed"]["rows"], intf["superblock"]["rows"]):
+        c = int(fx["concurrency"])
+        steps = sum(2 * c * fill + r["dummy_pages"] for r in (fx, sb))
+        page_steps += int(steps)
+        log(f"phase 14 (a): {c} | {fx['interference']!r}, "
+            f"{fx['dummy_pages']:.0f} | {sb['interference']!r}, "
+            f"{sb['dummy_pages']:.0f} | "
+            f"{2 * c * fill + int(fx['dummy_pages'])}")
+    log(f"phase 14 (a): worst FIXED {max(r['interference'] for r in intf['fixed']['rows'])!r}, "
+        f"worst SUPERBLOCK "
+        f"{max(r['interference'] for r in intf['superblock']['rows'])!r}; "
+        f"{page_steps} page steps a path, {3 * page_steps} in all")
+    # (b) Fig. 9
+    fio = got["fio"]
+    check(fio["engine_equal"] and fio["shim_equal"],
+          "phase 14: the Fig. 9 paths disagree")
+    for where in dict.fromkeys(r["geometry"] for r in fio["rows"]):
+        cells = [f"{r['request_kib']:.0f}K x{r['n_jobs']:.0f} "
+                 f"{r['bandwidth_mib_s']:.1f}" for r in fio["rows"]
+                 if r["geometry"] == where]
+        log(f"phase 14 (b): Fig. 9 {where} MiB/s: {'; '.join(cells)}")
+    log(f"phase 14 (b): legacy == engine on all {len(fio['rows'])} points, "
+        f"shim == legacy on {fio['shim_geometry']}")
+    # (c) Table 4
+    lat = got["alloc_latency"]
+    for spec_name in WORKLOAD_PARAMS["alloc_latency"]["specs"]:
+        sh, lg = lat[f"_{spec_name}_shim"], lat[f"_{spec_name}_legacy"]
+        log(f"phase 14 (c): Table 4 {spec_name} at zn540: median alloc "
+            f"latency shim {sh['median_us']:.1f} us (mean "
+            f"{sh['mean_us']:.1f}), legacy {lg['median_us']:.1f} us (mean "
+            f"{lg['mean_us']:.1f}); {lg['n_allocs']:.0f} allocs each")
+    # (d)-(f) the comparators
+    evl = got["engine_vs_legacy"]["_rep"]
+    check(evl["interference_recompiles"] == 0,
+          "phase 14: the interference sweep added launch plans across "
+          "its timed repeats")
+    log(f"phase 14 (d): engine vs legacy at zn540 ({card}): dlwa sweep "
+        f"legacy {evl['dlwa_legacy_s']:.6f} s, engine "
+        f"{evl['dlwa_engine_s']:.6f} s, speedup {evl['dlwa_speedup']:.4f}; "
+        f"interference legacy {evl['interference_legacy_s']:.6f} s, engine "
+        f"{evl['interference_engine_s']:.6f} s, speedup "
+        f"{evl['interference_speedup']:.4f}; plan growth "
+        f"{evl['interference_recompiles']:.0f}")
+    for run in ("sweep", "mixed"):
+        r = got["fleet_vs_legacy"][f"_{run}"]
+        log(f"phase 14 (e): fleet {run} ({r['n_configs']:.0f} configs, "
+            f"{r['fleet_ops']:.0f} ops; {card}): legacy {r['legacy_s']:.3f} "
+            f"s (measured {r['legacy_measured_s']:.3f} s on "
+            f"{r['legacy_timed_configs']:.0f} configs x scale "
+            f"{r['legacy_scale']:.0f}; replay only "
+            f"{r['legacy_replay_s']:.3f} s), engine {r['engine_s']:.3f} s, "
+            f"speedup {r['speedup']:.4f}, replay speedup "
+            f"{r['replay_speedup']:.4f}")
+    arr = got["array_vs_legacy"]["_rep"]
+    log(f"phase 14 (f): arrays ({arr['n_arrays']:.0f}, "
+        f"{arr['lane_ops']:.0f} lane ops; {card}): legacy "
+        f"{arr['legacy_s']:.3f} s (measured "
+        f"{arr['legacy_measured_s']:.3f} s on "
+        f"{arr['legacy_timed_arrays']:.0f} arrays x "
+        f"{arr['legacy_scale']:.0f}), engine {arr['engine_s']:.3f} s, "
+        f"speedup {arr['speedup']:.4f}")
+    # (g) the KV lanes: the legacy replay's DLWA is the dispatch's
+    for lane in got["kv_legacy"]["lanes"]:
+        want = kv["lanes"][(lane["workload"], "traditional")]["dlwa"]
+        check(lane["dlwa"] == want,
+              f"phase 14: legacy {lane['workload']} DLWA {lane['dlwa']!r} "
+              f"!= phase 11's traditional lane {want!r}")
+        log(f"phase 14 (g): {lane['workload']} traditional lane replayed "
+            f"through LegacyZNSDevice: DLWA {lane['dlwa']!r} == phase 11's "
+            f"dispatch, {lane['block_erases']} block erases")
+
+    # (h) the kernel against its plain version, then timed
+    t0 = time.perf_counter()
+    pc = phase_page_clock(torch, np, P, pc_ops, pc_ref)
+    log(f"phase 14 (h): page_clock == plain version bit for bit on "
+        f"{PAGE_CLOCK_CASES} random padded batches ({pc['random_requests']} "
+        f"requests) and the first {pc['prefix']} of the FIXED "
+        f"concurrency-7 contended stream ({pc['requests']} requests); "
+        f"kernel {pc['ms']:.6f} ms a launch on the whole stream = "
+        f"{pc['ns_per_request']:.2f} ns a request, device "
+        f"{pc['device_us']} us a launch; {pc['prefix_ms']:.6f} ms on the "
+        f"prefix, plain {pc['plain_ms']:.3f} ms on the prefix; bound "
+        f"{pc['bound_ms']:.6f} ms ({pc['bound_by']}: {pc['bytes']} bytes); "
+        f"checks and timings {time.perf_counter() - t0:.1f} s ({card})")
+    log(f"phase 14: {sum(secs.values()):.1f} s of sections "
+        f"{ {k: round(v, 3) for k, v in secs.items()} }")
+    return {"counts": counts, "secs": secs, "page_clock": pc,
+            "rows_launches": sum(c["rows"] for c in counts.values()),
+            "page_clock_launches": sum(c["page_clock"]
+                                       for c in counts.values())}
 
 
 # --------------------------------------------------------------------- #
@@ -1878,6 +2398,8 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.page_clock import ops as pc_ops
+    from repro_torch.kernels.page_clock import ref as pc_ref
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.kernels.ssm_scan import ref as sref
     from repro_torch.kernels.zns_alloc import ops, ref
@@ -1895,7 +2417,8 @@ def main() -> int:
         t0 = time.perf_counter()
         return _build.build(source), time.perf_counter() - t0
     sources = {"zns_alloc": ops.SOURCE, "flash_attention": fops.SOURCE,
-               "decode_attention": dops.SOURCE, "ssm_scan": sops.SOURCE}
+               "decode_attention": dops.SOURCE, "ssm_scan": sops.SOURCE,
+               "page_clock": pc_ops.SOURCE}
     with ThreadPoolExecutor(2 * len(sources)) as pool:
         usage = pool.map(_build.resource_usage, sources.values())
         for lib, secs in pool.map(timed_build, sources.values()):
@@ -2061,6 +2584,23 @@ def main() -> int:
                                "torch_fleet_zn540.json").read_text())
     fleet = phase_fleet(torch, np, ops, ref, engine, fleet_golden)
 
+    # 14. the paper's per-op benchmarks and the legacy oracles, held to
+    # the reference's golden summary; page_clock vs its plain version
+    t0 = time.perf_counter()
+    work = phase_workloads(
+        torch, np, ops, pc_ops, pc_ref,
+        json.loads((ROOT / "tests" / "data" /
+                    "torch_workloads_zn540.json").read_text()), kv)
+    legacy_rows_t = kernel_timing(torch, np, ops, ref, 1, 4, 1056, 22)
+    log(f"phase 14: zns_alloc rows at the legacy device's BLOCK shape "
+        f"(1 x 4 x 1056, take 22): kernel {legacy_rows_t['ms']:.6f} ms a "
+        f"call, device {legacy_rows_t['device_us']} us a launch, plain "
+        f"{legacy_rows_t['plain_ms']:.6f} ms, torch.topk "
+        f"{legacy_rows_t['library_ms']:.6f} ms, bound "
+        f"{legacy_rows_t['bound_ms']:.6f} ms ({legacy_rows_t['bound_by']})")
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    del kv["recs"]
+
     # 7. the attention kernels vs their plain versions; 7b. the scan
     attn_err = phase_attention(torch, np, fops, fref, dops, dref)
     ssm_err = phase_ssm(torch, np, sops, sref)
@@ -2202,7 +2742,42 @@ def main() -> int:
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
     })
-    log(json.dumps({"kernels": zns_entries + serve_entries}))
+    zns_entries.append({
+        "name": "zns_alloc/rows",
+        "path": "LegacyZNSDevice ALLOCs of phase 14",
+        "route": "cuda",
+        "source": zns,
+        "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
+        "launches": work["rows_launches"],
+        "max_abs_err": max_abs_err,
+        "ms": legacy_rows_t["ms"],
+        "device_us": legacy_rows_t["device_us"],
+        "plain_ms": legacy_rows_t["plain_ms"],
+        "bound_ms": legacy_rows_t["bound_ms"],
+        "bound_by": legacy_rows_t["bound_by"],
+        "library_ms": legacy_rows_t["library_ms"],
+    })
+    pc = work["page_clock"]
+    pc_entry = {
+        "name": "page_clock",
+        "path": "per-op benchmarks and legacy comparators (phase 14)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/page_clock/csrc/page_clock.cu",
+        "replaces": "src/repro/core/timing.py:82 (simulate_fleet, a "
+                    "lax.scan; no Pallas counterpart)",
+        "launches": work["page_clock_launches"],
+        "max_abs_err": pc["max_abs_err"],
+        "ms": pc["ms"],
+        "device_us": pc["device_us"],
+        "requests": pc["requests"],
+        "prefix_ms": pc["prefix_ms"],
+        "plain_ms": pc["plain_ms"],
+        "plain_requests": pc["prefix"],
+        "bound_ms": pc["bound_ms"],
+        "bound_by": pc["bound_by"],
+        "library_ms": None,
+    }
+    log(json.dumps({"kernels": zns_entries + serve_entries + [pc_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -14,12 +14,15 @@ execute in ONE batched ``run_programs`` dispatch (K arrays with mixed
 member counts / chunk sizes / parity / element specs per batch), with
 the object ``ZNSArray`` kept as the bit-exactness oracle.
 ``repro_torch.array.storm`` runs batched rebuild storms on top of it.
-The reference's ``array_vs_legacy_speedup`` checks a ``LegacyZNSDevice``
-oracle and waits for its port; :func:`array_batch` builds its engine leg.
+:func:`array_vs_legacy_speedup` times the batched dispatch against the
+object array over per-op shims, holding every array's report to an
+object array over ``LegacyZNSDevice`` members first; :func:`array_batch`
+builds its engine leg.
 """
 
 from repro_torch.array.engine import (ArrayEngine, ArrayResult,
                                       apply_commands, array_batch,
+                                      array_vs_legacy_speedup,
                                       fill_commands, run_array_batch,
                                       run_array_timing)
 from repro_torch.array.raid import (ArrayGeometry, SuperZoneInfo,
@@ -30,6 +33,6 @@ from repro_torch.array.storm import StormScenario, rebuild_storm
 
 __all__ = ["ArrayEngine", "ArrayGeometry", "ArrayResult", "StormScenario",
            "SuperZoneInfo", "TaggedTrace", "ZNSArray", "apply_commands",
-           "array_batch", "data_device_of", "fill_commands",
+           "array_batch", "array_vs_legacy_speedup", "data_device_of", "fill_commands",
            "locate_page", "member_chunk_pages", "parity_device_of",
            "rebuild_storm", "run_array_batch", "run_array_timing"]

@@ -27,9 +27,10 @@ The object ``ZNSArray`` stays as the bit-exactness oracle:
 :meth:`ArrayEngine.report` and :meth:`ArrayEngine.device_reports`
 reproduce its rollups exactly (``tests/test_torch_array_engine.py``
 holds them to the reference's and to the port's object array).
-:func:`array_batch` builds the reference comparator's engine leg (the
-command lists of ``array_vs_legacy_speedup``); the comparator itself
-checks a ``LegacyZNSDevice`` oracle and waits for its port.
+:func:`array_vs_legacy_speedup` times the batched dispatch against the
+object array over per-op shims, after holding every array's report to
+an object array over ``LegacyZNSDevice`` members (the pure-numpy oracle);
+:func:`array_batch` builds its engine leg.
 
 Batched sweeps: :func:`run_array_batch` stacks K arrays (mixed member
 counts, chunk sizes, parity settings, and -- on a union-config engine
@@ -779,28 +780,37 @@ def fill_commands(zone_pages: int, *, n_zones: int, occupancy: float,
 
 def _legacy_array(flash, zone_geom, geom: ArrayGeometry,
                   member_specs: Sequence[ElementSpec], *,
-                  max_active: int, device="cuda") -> ZNSArray:
+                  max_active: int, oracle: bool = False,
+                  device="cuda") -> ZNSArray:
     """The object pipeline: a ``ZNSArray`` over per-op ``ZNSDevice``
     shims on ``device`` (what ``ZNSArray.build`` constructs -- one engine
-    step per member op), each member built with its actual spec.  The
-    reference's ``oracle=True`` (``LegacyZNSDevice`` members) waits for
-    that device's port."""
-    from repro_torch.core.device import ZNSDevice
-    devices = [ZNSDevice(flash, zone_geom, s, max_active=max_active,
-                         device=device)
+    step per member op), each member built with its actual spec.
+    ``oracle=True`` swaps in ``LegacyZNSDevice`` members -- the
+    bit-compatible numpy oracle, cheap enough to differential-check every
+    array (its wear-aware ALLOCs run the ``zns_alloc`` row kernel on a
+    card)."""
+    if oracle:
+        from repro_torch.core.device_legacy import LegacyZNSDevice as cls
+    else:
+        from repro_torch.core.device import ZNSDevice as cls
+    devices = [cls(flash, zone_geom, s, max_active=max_active,
+                   device=device)
                for s in member_specs]
     return ZNSArray(devices, geom)
 
 
 def array_batch(eng: ZoneEngine, *, n_arrays: int = 8, n_zones: int = 4,
-                max_active: int = 14
+                max_active: int = 14,
+                specs: Optional[Sequence[ElementSpec]] = None
                 ) -> Tuple[List[ArrayEngine], List[List[Command]]]:
-    """The engine leg of the reference's ``array_vs_legacy_speedup``: a
-    devices x chunk x parity sweep of fill/FINISH/churn workloads, each
-    array compiled on ``eng`` from its command list, every member of
-    ``eng``'s spec.  Returns the arrays and their commands;
+    """The engine leg of :func:`array_vs_legacy_speedup`: a devices x
+    chunk x parity sweep of fill/FINISH/churn workloads, each array
+    compiled on ``eng`` from its command list, member ``d`` of
+    ``specs[d % len(specs)]`` (every member of ``eng``'s spec by
+    default).  Returns the arrays and their commands;
     ``run_array_batch(arrays, pad_quantum=64)`` then runs them as the
     comparator's engine pass does."""
+    specs = tuple(specs) if specs else (eng.spec,)
     seg = eng.zone_geom.segment_pages(eng.flash)
     axis = [(n_dev, chunk, parity)
             for n_dev in (4, 3)
@@ -810,9 +820,9 @@ def array_batch(eng: ZoneEngine, *, n_arrays: int = 8, n_zones: int = 4,
     commands: List[List[Command]] = []
     for i in range(n_arrays):
         n_dev, chunk, parity = axis[i % len(axis)]
+        member_specs = tuple(specs[d % len(specs)] for d in range(n_dev))
         a = ArrayEngine(eng, ArrayGeometry(n_dev, chunk, parity),
-                        member_specs=(eng.spec,) * n_dev,
-                        max_active=max_active)
+                        member_specs=member_specs, max_active=max_active)
         occ = 0.4 + 0.2 * (i % 3)
         cmds = fill_commands(a.zone_pages, n_zones=n_zones,
                              occupancy=occ, churn=2)
@@ -820,3 +830,104 @@ def array_batch(eng: ZoneEngine, *, n_arrays: int = 8, n_zones: int = 4,
         arrays.append(a)
         commands.append(cmds)
     return arrays, commands
+
+
+def array_vs_legacy_speedup(*, n_arrays: int = 8, repeats: int = 3,
+                            flash=None, zone_geom=None,
+                            specs: Optional[Sequence[ElementSpec]] = None,
+                            max_active: int = 14, n_zones: int = 4,
+                            legacy_arrays: Optional[int] = None,
+                            device="cuda") -> Dict[str, float]:
+    """Time the engine-native array path against the object ``ZNSArray``
+    replay, both on ``device``.
+
+    Both paths run the *same* logical commands (:func:`array_batch`'s
+    devices x chunk x parity sweep of fill/FINISH/churn workloads).  The
+    engine leg compiles the commands ONCE into encoded member programs
+    (``build_s``, reported separately), then each timed repeat is one
+    batched ``run_array_batch`` dispatch plus the full per-array
+    ``report()`` decode.  The legacy leg replays the commands through
+    object arrays over per-op ``ZNSDevice`` shims; with ``legacy_arrays``
+    < ``n_arrays`` it is timed once on that prefix and scaled (recorded
+    in the returned fields: ``legacy_timed_arrays`` /
+    ``legacy_measured_s`` / ``legacy_scale``).  Before any timing, every
+    per-array report is asserted bit-identical to an object array over
+    ``LegacyZNSDevice`` members (the exactness oracle), and the timed
+    prefix's shim reports to the engine's.
+    """
+    import time
+
+    from repro_torch.core.elements import SUPERBLOCK
+    from repro_torch.core.geometry import zn540
+
+    if (flash is None) != (zone_geom is None):
+        raise ValueError("flash and zone_geom must be given together")
+    if flash is None:
+        flash, zone_geom = zn540()
+    specs = tuple(specs) if specs else (SUPERBLOCK,)
+    eng = ZoneEngine(flash, zone_geom,
+                     specs if len(specs) > 1 else specs[0],
+                     max_active=max_active, device=device)
+    t0 = time.perf_counter()
+    arrays, commands = array_batch(eng, n_arrays=n_arrays, n_zones=n_zones,
+                                   max_active=max_active, specs=specs)
+    build_s = time.perf_counter() - t0
+
+    def engine_pass():
+        run_array_batch(arrays, pad_quantum=64)
+        return [a.report() for a in arrays]
+
+    def legacy_pass(subset, *, oracle=False):
+        reports = []
+        for a, cmds in subset:
+            arr = _legacy_array(flash, zone_geom, a.geom, a.member_specs,
+                                max_active=max_active, oracle=oracle,
+                                device=device)
+            apply_commands(arr, cmds)
+            reports.append(arr.report())
+        return reports
+
+    # exactness oracle (and engine warm-up): every report key of every
+    # array bit-identical to the numpy object oracle before anything is
+    # timed
+    engine_reports = engine_pass()
+    oracle_reports = legacy_pass(list(zip(arrays, commands)), oracle=True)
+    for er, lr in zip(engine_reports, oracle_reports):
+        assert er.keys() == lr.keys()
+        for k in er:
+            assert er[k] == lr[k], (
+                f"engine/legacy array mismatch on {k}: "
+                f"{er[k]} vs {lr[k]}")
+
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        engine_pass()
+    engine_s = (time.perf_counter() - t0) / repeats
+
+    # the timed legacy leg is the object pipeline itself (ZNSArray over
+    # per-op ZNSDevice shims); warmed on its prefix, timed once, scaled
+    n_leg = min(legacy_arrays or n_arrays, n_arrays)
+    scale = n_arrays / n_leg
+    prefix = list(zip(arrays, commands))[:n_leg]
+    shim_reports = legacy_pass(prefix)      # warm-up (builds, plans)
+    for er, lr in zip(engine_reports, shim_reports):
+        assert er == lr, "shim-member array diverged from the engine"
+    t0 = time.perf_counter()
+    legacy_pass(prefix)
+    legacy_measured_s = time.perf_counter() - t0
+    legacy_s = legacy_measured_s * scale
+
+    lane_ops = float(sum(len(p) for a in arrays
+                         for p in a.member_programs()))
+    return {
+        "n_arrays": float(n_arrays),
+        "lane_ops": lane_ops,
+        "build_s": build_s,
+        "engine_s": engine_s,
+        "engine_total_s": build_s / max(1, repeats) + engine_s,
+        "legacy_s": legacy_s,
+        "legacy_measured_s": legacy_measured_s,
+        "legacy_timed_arrays": float(n_leg),
+        "legacy_scale": scale,
+        "speedup": legacy_s / engine_s,
+    }

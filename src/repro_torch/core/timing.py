@@ -21,9 +21,12 @@ makespans match the reference's to f32 rounding.
   model behind the paper's reported figures.
 
 The trace drivers take the shim's :class:`~repro_torch.core.device.IOTrace`
-streams and run on ``device`` (the card by default).  The page loop
-launches a few kernels per page, so long page streams are cheaper on
-the CPU.
+streams and run on ``device`` (the card by default).  On the card the
+page-granular model is one launch of the hand-written ``page_clock``
+kernel (:mod:`repro_torch.kernels.page_clock`: a CTA per device steps its
+requests in order, bit for bit the reference's scan); on the CPU it is
+that kernel's plain version, a Python loop of a few tensor ops a page,
+which is what the CPU tests run.
 
 Units: times in seconds, requests in flash pages (ops/luns/channels are
 int32 indexes).
@@ -39,6 +42,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.device import IOTrace
 from repro_torch.core.geometry import FlashGeometry
+from repro_torch.kernels.page_clock import ops as page_clock
 
 OP_WRITE, OP_READ, OP_ERASE = 0, 1, 2
 _OP_CODE = {"write": OP_WRITE, "read": OP_READ, "erase": OP_ERASE}
@@ -52,6 +56,11 @@ def simulate_fleet(ops: torch.Tensor, luns: torch.Tensor,
                    n_channels: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Page-granular busy clocks for a batch of independent devices.
 
+    The ``page_clock`` kernel on CUDA tensors (one launch, one CTA a
+    device), its plain version
+    (:func:`repro_torch.kernels.page_clock.ref.simulate_fleet_ref`) on
+    CPU tensors; both equal the reference's scan bit for bit.
+
     Args:
       ops/luns/channels: (n_dev, n) int32, right-padded per device.
       valid:             (n_dev, n) bool, False on padding.
@@ -61,25 +70,9 @@ def simulate_fleet(ops: torch.Tensor, luns: torch.Tensor,
     Returns:
       (completion_times (n_dev, n) with 0 on padding, makespans (n_dev,)).
     """
-    dev = ops.device
-    n_dev, n = ops.shape
-    t_op = torch.as_tensor(t_op, dtype=F32, device=dev)
-    t_xfer = torch.as_tensor(t_xfer, dtype=F32, device=dev)
-    ids = torch.arange(n_dev, device=dev)
-    lun_free = torch.zeros((n_dev, n_luns), dtype=F32, device=dev)
-    ch_free = torch.zeros((n_dev, n_channels), dtype=F32, device=dev)
-    done_all = torch.zeros((n_dev, n), dtype=F32, device=dev)
-    for i in range(n):
-        lun = luns[:, i].long()
-        ch = channels[:, i].long()
-        ok = valid[:, i]
-        start = torch.maximum(lun_free[ids, lun], ch_free[ids, ch])
-        done_xfer = start + t_xfer
-        done = done_xfer + t_op[ops[:, i].long()]
-        lun_free[ids, lun] = torch.where(ok, done, lun_free[ids, lun])
-        ch_free[ids, ch] = torch.where(ok, done_xfer, ch_free[ids, ch])
-        done_all[:, i] = torch.where(ok, done, 0.0)
-    return done_all, lun_free.amax(1)
+    return page_clock.simulate_fleet(ops, luns, channels, valid, t_op,
+                                     t_xfer, n_luns, n_channels,
+                                     impl="kernel")
 
 
 def simulate(ops: torch.Tensor, luns: torch.Tensor, channels: torch.Tensor,

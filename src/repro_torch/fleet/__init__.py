@@ -20,8 +20,10 @@ ZoneEngine (the port of ``repro.fleet``):
   successive-halving rung schedule, a persistent cross-generation
   Pareto archive, and seeded determinism.
 
-The reference's per-op legacy comparators (``run_configs_legacy``,
-``fleet_vs_legacy_speedup``) wait for the port of ``LegacyZNSDevice``.
+:func:`run_configs_legacy` / :func:`fleet_vs_legacy_speedup` replay the
+same configs through object arrays over per-op
+:class:`~repro_torch.core.device_legacy.LegacyZNSDevice` members: the
+DLWA oracle and the speedup baseline of the batched sweep.
 """
 
 from repro_torch.fleet.evolve import (EvolveParams, EvolveResult, evolve,
@@ -32,8 +34,9 @@ from repro_torch.fleet.runner import (FleetResult, assert_all_ok,
 from repro_torch.fleet.search import (MIXES, N_TENANTS, OBJECTIVE_KEYS,
                                       Evaluator, FleetConfig, SearchSpace,
                                       build_fleet_batch, evaluate_configs,
-                                      grid_space, pareto_front,
-                                      random_space, score_rows)
+                                      fleet_vs_legacy_speedup, grid_space,
+                                      pareto_front, random_space,
+                                      run_configs_legacy, score_rows)
 from repro_torch.fleet.tenants import (TENANT_COL, interleave_tenants,
                                        pad_programs, stripe_program,
                                        tag_tenant)
@@ -43,8 +46,9 @@ __all__ = [
     "FleetResult", "assert_all_ok", "config_report", "dispatch_cost",
     "real_op_count", "run_fleet",
     "MIXES", "N_TENANTS", "OBJECTIVE_KEYS", "Evaluator", "FleetConfig",
-    "SearchSpace", "build_fleet_batch", "evaluate_configs", "grid_space",
-    "pareto_front", "random_space", "score_rows",
+    "SearchSpace", "build_fleet_batch", "evaluate_configs",
+    "fleet_vs_legacy_speedup", "grid_space", "pareto_front",
+    "random_space", "run_configs_legacy", "score_rows",
     "TENANT_COL", "interleave_tenants", "pad_programs",
     "stripe_program", "tag_tenant",
 ]

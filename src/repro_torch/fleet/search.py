@@ -44,9 +44,11 @@ adaptive strategies minimize.
 Every config expands to lanes of ONE ``run_programs`` dispatch on the
 engine's device: one op step per padded program row for all lanes at
 once (on a card, one fused ALLOC and one grow selection launch per op
-step, whatever the lane count).  The reference's per-op legacy
-comparators (``run_configs_legacy`` / ``fleet_vs_legacy_speedup``) replay
-through ``LegacyZNSDevice`` and wait for its port.
+step, whatever the lane count).  The per-op legacy comparators
+(:func:`run_configs_legacy` / :func:`fleet_vs_legacy_speedup`) replay the
+same logical traffic through object arrays over
+:class:`~repro_torch.core.device_legacy.LegacyZNSDevice` members and hold
+every config's DLWA to the batched path's.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ import dataclasses
 import itertools
 import math
 import random as pyrandom
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,6 +66,7 @@ from repro_torch.core import engine as zengine
 from repro_torch.core import timing, workloads
 from repro_torch.core.elements import SUPERBLOCK, ElementKind, ElementSpec
 from repro_torch.core.engine import ZoneEngine, stack_dyn
+from repro_torch.core.geometry import FlashGeometry, ZoneGeometry
 from repro_torch.fleet import runner
 from repro_torch.fleet.tenants import (interleave_tenants, pad_programs,
                                        stripe_program, tag_tenant)
@@ -538,3 +541,183 @@ def pareto_front(rows: List[Dict],
         if not dominated:
             front.append(r)
     return front
+
+
+# --------------------------------------------------------------------- #
+# per-op legacy comparator (the speedup baseline of the batched sweep)
+# --------------------------------------------------------------------- #
+def run_configs_legacy(flash: FlashGeometry, spec: ElementSpec,
+                       configs: Sequence[FleetConfig],
+                       merged_programs: Sequence[np.ndarray], *,
+                       parallelism: int, n_devices: int = 4,
+                       max_active: int = 14,
+                       fleet_timing: bool = False,
+                       device="cuda") -> List[Dict]:
+    """Evaluate each config the pre-fleet way: replay its merged logical
+    program through a real :class:`repro_torch.array.ZNSArray` over per-op
+    ``LegacyZNSDevice`` members on ``device``.  Each config gets devices
+    built with its *actual* (non-padded) zone geometry **and element
+    spec** (``fc.spec``; the ``spec`` argument is only the engine's
+    primary and is superseded per config), so this doubles as a semantic
+    cross-check: array DLWA must match the batched engine path exactly
+    -- including mixed-spec batches through a union config.
+    ``alloc_policy = "silent"`` configs replay here too: which blocks a
+    zone claims never changes which pages FINISH pads (pads depend only
+    on the write pointer and the spec's stripe map), so silent lanes are
+    DLWA-identical to the legacy device at the same spec (wear totals are
+    where the policies diverge, and those are not replayed).
+
+    With ``fleet_timing`` the replay also collects the page-granular IO
+    traces and runs :func:`repro_torch.core.timing.run_fleet_trace` per
+    config on ``device`` (one ``page_clock`` launch a config on a
+    card)."""
+    from repro_torch.array import ArrayGeometry, ZNSArray
+    from repro_torch.core.device_legacy import LegacyZNSDevice
+
+    out = []
+    for fc, merged in zip(configs, merged_programs):
+        geom = ZoneGeometry(parallelism=parallelism,
+                            n_segments=fc.n_segments)
+        nd = fc.n_devices or n_devices
+        specs_mix = fc.specs_mix()
+        devices = [LegacyZNSDevice(flash, geom,
+                                   specs_mix[d % len(specs_mix)],
+                                   max_active=max_active,
+                                   wear_aware=fc.wear_aware, device=device)
+                   for d in range(nd)]
+        arr = ZNSArray(devices, ArrayGeometry(
+            nd, fc.chunk_pages, fc.parity))
+        tagged: List = []
+        for row in merged:
+            op, zone, n_pages = int(row[0]), int(row[1]), int(row[2])
+            if op == zengine.OP_WRITE:
+                tr = arr.zone_write(zone, n_pages,
+                                    host=bool(row[3] & zengine.F_HOST),
+                                    trace=fleet_timing)
+                tagged += tr or []
+            elif op == zengine.OP_FINISH:
+                tagged += arr.zone_finish(zone, trace=fleet_timing) or []
+            elif op == zengine.OP_RESET:
+                arr.zone_reset(zone)
+        rep = arr.report()
+        rep["config"] = fc.describe()
+        # pooled over all members' blocks, the same statistic as
+        # runner.config_report (block wear repeats element wear
+        # blocks_per_element times, which leaves the CV unchanged)
+        w = np.concatenate([d.block_wear() for d in arr.devices])
+        rep["wear_cv"] = float(w.std() / w.mean()) if w.mean() > 0 else 0.0
+        if fleet_timing:
+            fleet = timing.run_fleet_trace(
+                arr.flash, timing.group_tagged(tagged, nd), device=device)
+            rep["makespan_s"] = fleet["fleet_makespan_s"]
+            rep["fleet_pages"] = float(fleet["n"])
+        out.append(rep)
+    return out
+
+
+def fleet_vs_legacy_speedup(*, n_devices: int = 4,
+                            configs: Optional[Sequence[FleetConfig]] = None,
+                            repeats: int = 3,
+                            flash: Optional[FlashGeometry] = None,
+                            zone_geom: Optional[ZoneGeometry] = None,
+                            max_active: int = 14,
+                            specs: Optional[Sequence[ElementSpec]] = None,
+                            legacy_configs: Optional[int] = None,
+                            device="cuda") -> Dict[str, float]:
+    """Time the batched fleet sweep against the per-op legacy pipeline,
+    both on ``device``.
+
+    Both paths evaluate the *same* configs on the *same* logical
+    traffic (the merged tenant programs), end to end:
+
+    * **engine** -- :func:`evaluate_configs`: ONE ``run_programs``
+      dispatch over all (config x device) lanes + ONE batched
+      op-granular timing pass;
+    * **legacy** -- :func:`run_configs_legacy` with ``fleet_timing``:
+      per config, a real ``ZNSArray`` over stateful-Python members,
+      page-granular trace collection, and a ``run_fleet_trace`` device
+      simulation.
+
+    Steady state (first builds and launch plans excluded via one warm
+    pass); array-level DLWA is asserted identical between the paths for
+    EVERY config before anything is timed.  Also reports the replay-only
+    legacy time (``legacy_replay_s``, no trace/timing), which separates
+    the state machine's cost from the page-granular timing's.  With
+    ``specs`` (a spec set) the engine is the padded *union* config and
+    the configs may mix element specs per lane -- the legacy path then
+    builds each config's members with its actual spec, making the DLWA
+    assert an exactness oracle for the mixed-spec dispatch.
+
+    ``legacy_configs`` (< the config count) times the legacy legs on
+    only that config prefix, once, and linearly scales the measurement
+    (the per-op pipeline is per-config sequential, so its cost is linear
+    in the config count).  The scaling is recorded in the returned dict:
+    ``legacy_timed_configs``, the measured times (``legacy_measured_s`` /
+    ``legacy_replay_measured_s``) and ``legacy_scale``.
+    """
+    import time
+
+    from repro_torch.core.geometry import zn540
+
+    if (flash is None) != (zone_geom is None):
+        raise ValueError("flash and zone_geom must be given together")
+    if flash is None:
+        flash, zone_geom = zn540()
+    specs = tuple(specs) if specs else (SUPERBLOCK,)
+    eng = ZoneEngine(flash, zone_geom,
+                     specs if len(specs) > 1 else specs[0],
+                     max_active=max_active, device=device)
+    if configs is None:
+        configs = grid_space(specs=specs)
+    programs, dyn, merged = build_fleet_batch(eng, configs,
+                                              n_devices=n_devices)
+    n_ops = int((programs[:, :, 0] != zengine.OP_NOP).sum())
+
+    def engine_pass():
+        return evaluate_configs(eng, configs, n_devices=n_devices)
+
+    def legacy_pass(fleet_timing=True, n=None):
+        return run_configs_legacy(
+            flash, specs[0], configs[:n], merged[:n],
+            parallelism=zone_geom.parallelism, n_devices=n_devices,
+            max_active=max_active, fleet_timing=fleet_timing,
+            device=device)
+
+    rows = engine_pass()      # warm both paths
+    legacy = legacy_pass()    # EVERY config: the exactness oracle
+    for r, l in zip(rows, legacy):
+        assert abs(r["dlwa"] - l["dlwa"]) < 1e-9, (
+            f"engine/legacy DLWA mismatch on {r['config']}: "
+            f"{r['dlwa']} vs {l['dlwa']}")
+
+    def timed(fn, reps=repeats):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps
+
+    n_leg = min(legacy_configs or len(configs), len(configs))
+    scale = len(configs) / n_leg
+    leg_reps = repeats if n_leg == len(configs) else 1
+    t_eng = timed(engine_pass)
+    t_leg_measured = timed(lambda: legacy_pass(n=n_leg), leg_reps)
+    t_leg_replay_measured = timed(
+        lambda: legacy_pass(fleet_timing=False, n=n_leg), leg_reps)
+    t_leg = t_leg_measured * scale
+    t_leg_replay = t_leg_replay_measured * scale
+    return {
+        "n_configs": float(len(configs)),
+        "n_devices": float(n_devices),
+        "fleet_ops": float(n_ops),
+        "legacy_s": t_leg,
+        "legacy_replay_s": t_leg_replay,
+        "legacy_measured_s": t_leg_measured,
+        "legacy_replay_measured_s": t_leg_replay_measured,
+        "legacy_timed_configs": float(n_leg),
+        "legacy_scale": scale,
+        "engine_s": t_eng,
+        "legacy_configs_s": len(configs) / t_leg,
+        "engine_configs_s": len(configs) / t_eng,
+        "speedup": t_leg / t_eng,
+        "replay_speedup": t_leg_replay / t_eng,
+    }

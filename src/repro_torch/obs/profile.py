@@ -112,14 +112,24 @@ def _no_plans() -> int:
     return 0
 
 
+def _page_clock_plans() -> int:
+    """Launch plans of the page-granular timing kernel (one per stream
+    shape, as the reference's jitted scan compiles one per shape)."""
+    from repro_torch.kernels.page_clock import ops
+    return len(ops._plans)
+
+
 def _plan_counters() -> Dict[Callable, Callable[[], int]]:
     """The dispatch surface -> the plan caches of the kernels it runs.
     ``simulate_fleet_ops`` launches no kernel of the port's own, so it
-    keeps no plan."""
+    keeps no plan; the page-granular ``simulate`` / ``simulate_fleet``
+    (behind ``run_trace`` / ``run_fleet_trace``) launch ``page_clock``."""
     from repro_torch.core import engine, timing
     return {engine.apply_op: _zns_plans, engine.run_program: _zns_plans,
             engine.run_programs: _zns_plans,
-            timing.simulate_fleet_ops: _no_plans}
+            timing.simulate_fleet_ops: _no_plans,
+            timing.simulate: _page_clock_plans,
+            timing.simulate_fleet: _page_clock_plans}
 
 
 def jit_cache_size(fn) -> int:
