@@ -102,8 +102,10 @@ of which stops the run with a non-zero exit when it fails:
     concurrency-7 contended stream (473,088 requests), then timed on that
     whole stream beside its bound and the plain loop on the prefix;
 7. hold the two attention kernels to their plain versions on CUDA
-   tensors, f32 and bf16, at both serving paths' shapes (granite's and
-   the Jamba cut's: S 2048, G 8), at S and Sk on, one before and one
+   tensors, f32 and bf16, at the three serving paths' shapes (granite's,
+   the Jamba cut's: S 2048, G 8, and the llama4-scout cut's: G 5, 40
+   query over 8 KV heads, S 512, decode lengths 513-544), at S and Sk
+   on, one before and one
    after the flash kernel's 128-row tiles and at D 16, at lengths on,
    one before and one after a split boundary of the decode kernel's
    plan and with most splits empty, and at random ragged shapes
@@ -149,14 +151,49 @@ then, with granite's model and caches freed, the Mamba path:
      exponentials and f32 instructions, with the share of exponentials
      best moved from the SFU to the f32 pipes, see :func:`scan_floor`), flash attention (S 2048, G 8) and
      decode attention (G 8) beside their plain versions and SDPA -- a
-     second timed serve run, and one profiled decode step.
+     second timed serve run, and one profiled decode step;
+
+then, with the Jamba cut freed, the MoE path:
+
+7c. deepseek-v2's routed layer at its published ``MoEDims`` (160
+    experts, top-6, d 5120, f 1536, 2 shared experts, capacity factor
+    1.25, device-limited routing over 16 groups with limit 3, int8
+    dispatch; 3.82 B parameters from a seeded generator on the card):
+    two runs bit-identical at T = 4096 and T = 8, and at T = 512 the
+    routes, kept mask and positions equal to a CPU run of the same
+    function on the same tensors (a route may differ only where the
+    chosen and the next probability are within 1e-5; the rest is then
+    held under the card's routes) and the output within the bf16 kernel
+    tolerance; the weights are freed after;
+8c. ``serve.build`` and ``serve.generate`` for the one-card cut of
+    llama4-scout-17b-a16e (``configs/llama4_scout_17b_a16e.ONE_CHIP``:
+    every width, all 16 experts and the shared expert as published,
+    depth 48 -> 16; weights from seed 0 on the card): 8 prompts of 512
+    tokens, 31 greedy decode steps, every launch count zeroed just
+    before and read just after -- ``flash_attention`` 16 in prefill,
+    ``decode_attention`` 16 x 31 in decode, nothing crossed, no
+    ``ssm_scan``, ``zns_alloc`` or ``page_clock`` launch -- with every
+    MoE layer recording its routes; the peak device memory and the
+    pairs prefill dropped at capacity 320;
+9c. the same run through the plain attention, teacher-forced, with every
+    MoE layer replaying 8c's routes: every step's logits and the final
+    caches held to 8c's; then routing on its own, with the (layer, token)
+    routes that flipped and the largest flipped top-1/top-2 margin
+    printed (not gated);
+10c. CUDA-event times at the cut's shapes -- one MoE layer at T = 4096
+     and T = 8 beside its bound (all E x C slots and the shared expert at
+     the bf16 peak; every weight read once) with its device events under
+     ``torch.profiler``, flash (G 5) and decode attention (G 5) beside
+     their plain versions and SDPA -- a second timed serve run, and one
+     profiled decode step.
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
 per kernel and path (``path``: ``paper_report``, ``kv_zn540`` and
 ``fleet_sweep_zn540`` for the two fused ``zns_alloc`` selections, the
 Pallas contract and phase 14's legacy ALLOCs for its row kernel,
-granite-3-8b, the Jamba cut, phase 14 for ``page_clock``), each with that
+granite-3-8b, the Jamba cut and the llama4-scout cut for the serving
+kernels, phase 14 for ``page_clock``), each with that
 path's launches and the times at its shapes -- and ``{"ok": true,
 "device": {...}}``.
 """
@@ -202,11 +239,25 @@ GRANITE_PARAMS = 8_171_884_544
 KERNEL_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}
 #: kernel path vs plain path through 40 bf16 layers: the two attention
 #: outputs differ by an ulp of bf16 here and there, and every layer
-#: rounds its residual stream to bf16 again
+#: rounds its residual stream to bf16 again.  For an MoE stack it holds
+#: under replayed routes (phase 9c): routing is discontinuous, so an ulp
+#: in an attention output may flip a near-tied expert choice, and the
+#: check is of the kernels, not of the router
 SERVE_TOL = 5e-2
 #: the Mamba slice: 8 prompts of 2048 tokens, 32 tokens out
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_TOKENS = 8, 2048, 32
 JAMBA_PARAMS = 8_462_049_280
+#: the MoE slice: llama4-scout's one-card cut, 8 prompts of 512 tokens,
+#: 32 tokens out
+LLAMA4_BATCH, LLAMA4_PROMPT, LLAMA4_TOKENS = 8, 512, 32
+LLAMA4_PARAMS = 36_269_102_080
+#: phase 7c: deepseek-v2's routed layer, run twice at a prefill-sized and
+#: a decode-sized call, and held to a CPU run of the same function at
+#: MOE_CPU_TOKENS; only an f32 near-tie (a gap under ROUTE_FLIP_MARGIN
+#: between the chosen and the next probability) may route differently
+MOE_REPEAT_TOKENS = (4096, 8)
+MOE_CPU_TOKENS = 512
+ROUTE_FLIP_MARGIN = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1801,13 +1852,15 @@ def rel_err(torch, got, want) -> tuple:
 
 
 def flash_cases(rng) -> list:
-    """(b, hq, hkv, s, sk, d, causal): the two serving paths' prefills
-    (granite, and the Jamba cut at S 2048 and G 8); S and Sk at 127, 128,
+    """(b, hq, hkv, s, sk, d, causal): the three serving paths' prefills
+    (granite, the Jamba cut at S 2048 and G 8, the llama4-scout cut at G
+    5); S and Sk at 127, 128,
     129 and 64 mod 128 about the bf16 kernel's 128-row tiles, and D 16;
     then random ragged shapes -- S and Sk off the 64-row tiles, D in {64,
     96, 128}, G in {1, 4, 8}, causal with S <= Sk and not causal."""
     cases = [(8, 32, 8, 512, 512, 128, True),
-             (8, 64, 8, 2048, 2048, 128, True), (1, 4, 4, 1, 1, 64, True),
+             (8, 64, 8, 2048, 2048, 128, True),
+             (8, 40, 8, 512, 512, 128, True), (1, 4, 4, 1, 1, 64, True),
              (2, 8, 1, 1, 300, 128, True),
              (2, 8, 2, 127, 127, 128, True), (2, 8, 2, 128, 128, 128, True),
              (2, 8, 2, 129, 129, 128, True), (1, 8, 1, 192, 320, 128, True),
@@ -1829,16 +1882,19 @@ def flash_cases(rng) -> list:
 
 
 def decode_cases(rng, split_plan, n_sm) -> list:
-    """(b, hq, hkv, s, d, lengths): the two serving paths' decodes
+    """(b, hq, hkv, s, d, lengths): the three serving paths' decodes
     (granite: lengths 513 to 544 over a 544-row cache; the Jamba cut at G
-    8: 2049 to 2080 over 2080 rows); lengths on, one before and one after
-    a split boundary of the plan the kernel runs (``split_plan`` on this
-    card's ``n_sm``), and a batch whose splits are mostly empty; then
+    8: 2049 to 2080 over 2080 rows; the llama4-scout cut at G 5, the
+    first odd G, over granite's lengths); lengths on, one before and one
+    after a split boundary of the plan the kernel runs (``split_plan`` on
+    this card's ``n_sm``), and a batch whose splits are mostly empty; then
     random shapes with lengths 0, 1, full and random."""
     cases = [(8, 32, 8, 544, 128, [513, 517, 522, 526, 531, 535, 540,
                                    544]),
              (8, 64, 8, 2080, 128, [2049, 2053, 2058, 2062, 2067, 2071,
-                                    2076, 2080])]
+                                    2076, 2080]),
+             (8, 40, 8, 544, 128, [513, 517, 522, 526, 531, 535, 540,
+                                   544])]
     for b, hq, hkv, s in ((4, 32, 8, 1000), (3, 64, 8, 2080)):
         rps, _ = split_plan(b, hkv, s, n_sm)
         cases.append((b, hq, hkv, s, 128, [rps, rps - 1, rps + 1,
@@ -2299,34 +2355,42 @@ def bound_entry(ms, plain_ms, library_ms, bytes_moved, flops) -> dict:
             "bytes": bytes_moved, "flops": flops}
 
 
-def profile_decode_step(torch, MDL, run) -> dict:
-    """One more decode step (at the cache's last row) under
-    ``torch.profiler``: the card's busy time (its kernel and copy spans,
-    which do not overlap on one stream) against the step's wall time,
-    and the decode-attention kernel's own device time."""
+def profile_region(torch, fn, mark: str = None) -> dict:
+    """One call of ``fn`` (after a warm one) under ``torch.profiler``: its
+    wall time, the card's busy time (its kernel and copy spans, which do
+    not overlap on one stream), its device events, and the launches and
+    mean device time of the kernels whose name holds ``mark``."""
     from torch.profiler import ProfilerActivity, profile
-    cfg, model, caches = run["cfg"], run["model"], run["caches"]
-    step = MDL.make_decode_step(cfg)
-    token = run["tokens"][:, -1]
-    pos = torch.full((token.shape[0],), caches["k"].shape[2] - 1,
-                     dtype=torch.int32, device="cuda")
     with torch.inference_mode():
-        step(model, token, caches, pos)            # warm
+        fn()                                       # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(model, token, caches, pos)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in device)
     kern = [e.time_range.elapsed_us() for e in device
-            if "decode_kernel" in e.name]
+            if mark is not None and mark in e.name]
     return {"wall_us": wall_us, "busy_us": busy_us,
             "device_events": len(device), "kernel_launches": len(kern),
             "kernel_us": sum(kern) / len(kern) if kern else None}
+
+
+def profile_decode_step(torch, MDL, run) -> dict:
+    """One more decode step (at the cache's last row) under
+    ``torch.profiler``, with the decode-attention kernel's own device
+    time (see :func:`profile_region`)."""
+    cfg, model, caches = run["cfg"], run["model"], run["caches"]
+    step = MDL.make_decode_step(cfg)
+    token = run["tokens"][:, -1]
+    pos = torch.full((token.shape[0],), caches["k"].shape[2] - 1,
+                     dtype=torch.int32, device="cuda")
+    return profile_region(torch, lambda: step(model, token, caches, pos),
+                          "decode_kernel")
 
 
 def log_serve_timing(torch, F, serve, MDL, run, phase, fops, fref, dops,
@@ -2375,6 +2439,218 @@ def log_serve_timing(torch, F, serve, MDL, run, phase, fops, fref, dops,
     return attn_t
 
 
+# --------------------------------------------------------------------- #
+# phases 7c-10c: the MoE path
+# --------------------------------------------------------------------- #
+def numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def same_routing(torch, a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def phase_moe_layer(torch, MOE, dims) -> dict:
+    """deepseek-v2's routed layer at its published ``MoEDims`` (160
+    experts, top-6 over 16 groups with limit 3, int8 dispatch, 2 shared
+    experts) with weights drawn on the card: two runs of the same call
+    must be bit-identical (any atomic combine would show), and a call of
+    :data:`MOE_CPU_TOKENS` must route as the same function does on the
+    CPU -- a route that differs only at an f32 near-tie is printed and
+    the rest is then held under the card's routes -- with kept mask and
+    positions equal and the output within ``KERNEL_TOL["bfloat16"]``."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    t0 = time.perf_counter()
+    p = MOE.moe_init(gen, dims, device="cuda")
+    n_params = sum(numel(v) for v in p.values())
+
+    def tokens(n):
+        return torch.randn((n, dims.d_model), generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+    drops = {}
+    for n in MOE_REPEAT_TOKENS:
+        x = tokens(n)
+        a, ra = MOE.moe_forward(p, x, dims)
+        b, rb = MOE.moe_forward(p, x, dims)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b) and same_routing(torch, ra, rb),
+              f"phase 7c: two runs of the routed layer at T={n} differ")
+        check(tuple(a.shape) == (n, dims.d_model)
+              and bool(torch.isfinite(a.float()).all()),
+              f"phase 7c: bad output at T={n}")
+        drops[n] = (int((~ra.keep).sum()), MOE.capacity(n, dims))
+    x = tokens(MOE_CPU_TOKENS)
+    out, r = MOE.moe_forward(p, x, dims)
+    drops[MOE_CPU_TOKENS] = (int((~r.keep).sum()),
+                             MOE.capacity(MOE_CPU_TOKENS, dims))
+    cpu_p = {k: ({n: w.cpu() for n, w in v.items()} if k == "shared"
+                 else v.cpu()) for k, v in p.items()}
+    t1 = time.perf_counter()
+    out_c, rc = MOE.moe_forward(cpu_p, x.cpu(), dims)
+    cpu_s = time.perf_counter() - t1
+    idx = r.gate_idx.cpu()
+    differ = (idx != rc.gate_idx).any(dim=1).nonzero().flatten().tolist()
+    for t in differ:
+        log(f"phase 7c: token {t} routes to {idx[t].tolist()} on the card, "
+            f"{rc.gate_idx[t].tolist()} on the CPU; top-6/top-7 margin "
+            f"{float(r.margin[t]):.3e} (card), {float(rc.margin[t]):.3e} "
+            f"(CPU)")
+        check(min(float(r.margin[t]), float(rc.margin[t]))
+              <= ROUTE_FLIP_MARGIN,
+              f"phase 7c: token {t} routes differently beyond an f32 "
+              f"near-tie")
+    if differ:                 # hold the rest under the card's routes
+        out_c, rc = MOE.moe_forward(cpu_p, x.cpu(), dims, routes=idx)
+    check(torch.equal(r.keep.cpu(), rc.keep)
+          and torch.equal(r.pos.cpu(), rc.pos),
+          "phase 7c: kept mask or positions differ from the CPU run")
+    err, diff = rel_err(torch, out.cpu(), out_c)
+    check(err <= KERNEL_TOL["bfloat16"],
+          f"phase 7c: routed layer on the card vs the CPU: rel err {err}")
+    log(f"phase 7c: deepseek-v2 routed layer ({dims}; {n_params} "
+        f"parameters from seed 19 on the card): two runs bit-identical at "
+        f"T = {list(MOE_REPEAT_TOKENS)}; at T = {MOE_CPU_TOKENS} routes == "
+        f"the CPU run's "
+        f"({len(differ)} near-tie flips), kept mask and positions equal, "
+        f"output rel err {err:.3e} (max abs {diff:.3e}; tolerance "
+        f"{KERNEL_TOL['bfloat16']}); (token, expert) pairs dropped / "
+        f"capacity by T {drops}; the CPU run took {cpu_s:.1f} s; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return {"flips": len(differ), "err": err}
+
+
+def moe_layers(TT, model) -> list:
+    return [m for m in model.modules() if isinstance(m, TT.MoEFFN)]
+
+
+def phase_llama4(torch, serve, TT, MOE, cfg, kernels, others) -> dict:
+    """The one-card llama4-scout cut through ``serve.build`` and
+    ``serve.generate`` with weights from seed 0 on the card, every MoE
+    layer recording its routes, every launch count (``others``: kernels
+    this path must not launch) zeroed just before the run and read just
+    after."""
+    torch.cuda.reset_peak_memory_stats()
+    model = serve.build(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in model.parameters())
+    prompts = torch.from_numpy(serve.make_prompts(
+        cfg, LLAMA4_BATCH, LLAMA4_PROMPT, seed=0)).to("cuda")
+    layers = moe_layers(TT, model)
+    for m in layers:
+        m.record = []
+    for mod in list(kernels.values()) + list(others.values()):
+        mod.reset_launches()
+    run = serve.generate(model, cfg, prompts, LLAMA4_TOKENS)
+    counts = read_counts(kernels)
+    other = {"zns_alloc": sum(others["zns_alloc"].counts.values()),
+             "page_clock": others["page_clock"].launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    routes = [m.record for m in layers]
+    for m in layers:
+        m.record = None
+    run = dict(run, cfg=cfg, model=model, prompts=prompts,
+               n_params=n_params, counts=counts, routes=routes)
+    check_serve(torch, run, counts, kernels, n_params, LLAMA4_PARAMS)
+    check(other == {"zns_alloc": 0, "page_clock": 0},
+          f"{cfg.name}: launched {other}")
+    check(tuple(run["tokens"].shape) == (LLAMA4_BATCH, LLAMA4_TOKENS)
+          and len(layers) == cfg.n_layers
+          and all(len(rec) == LLAMA4_TOKENS for rec in routes),
+          "llama4 token shape or route records")
+    pairs = routes[0][0].keep.numel()
+    cap = MOE.capacity(pairs // cfg.top_k, TT.moe_dims(cfg))
+    dropped = [int((~rec[0].keep).sum()) for rec in routes]
+    steps = LLAMA4_TOKENS - 1
+    log(f"phase 8c: served {cfg.name} one-card cut ({n_params} "
+        f"parameters, {cfg.n_layers} MoE layers of {cfg.n_experts} "
+        f"experts, top-{cfg.top_k}, 1 shared) on cuda: {LLAMA4_BATCH} x "
+        f"{LLAMA4_PROMPT} prompt, {steps} decode steps; launches {counts} "
+        f"(prefill {run['launches']['prefill']}, decode "
+        f"{run['launches']['decode']}), {other}; prefill "
+        f"{run['prefill_s']:.6f} s, decode "
+        f"{run['decode_s'] / steps * 1e3:.6f} ms/step (first run); peak "
+        f"device memory {peak_gb:.2f} GB; prefill dropped {sum(dropped)} "
+        f"of {pairs * cfg.n_layers} (token, expert) pairs at capacity "
+        f"{cap} (per layer {dropped}); first row "
+        f"{run['tokens'][0, :12].tolist()}")
+    return dict(run, peak_gb=peak_gb, dropped=dropped)
+
+
+def phase_llama4_ref(torch, serve, TT, run) -> dict:
+    """The plain path, teacher-forced with phase 8c's tokens, first with
+    every MoE layer replaying phase 8c's routes -- held to phase 8c's
+    logits and caches at :data:`SERVE_TOL` -- then routing on its own,
+    where the (layer, token) routes that flip are counted (a finding,
+    not a gate)."""
+    cfg = run["cfg"]
+    layers = moe_layers(TT, run["model"])
+    for m, rec in zip(layers, run["routes"]):
+        m.replay = iter([r.gate_idx for r in rec])
+    errs = phase_serve_ref(torch, serve, run, "9c")
+    check(all(next(m.replay, None) is None for m in layers),
+          "phase 9c: a layer did not replay every recorded route")
+    for m in layers:
+        m.replay, m.record = None, []
+    free = serve.generate(run["model"], cfg, run["prompts"],
+                          run["tokens"].shape[1], attn_impl="ref",
+                          ssm_impl="ref", forced=run["tokens"])
+    # flips in layer 0 follow from the attention alone; a later layer's
+    # also from the flips before it
+    flips, total, worst, per_layer = 0, 0, 0.0, []
+    first, first_worst = 0, 0.0
+    for li, (m, rec) in enumerate(zip(layers, run["routes"])):
+        n_layer = 0
+        for a, b in zip(rec, m.record):
+            d = (a.gate_idx != b.gate_idx).any(dim=1)
+            n = int(d.sum())
+            total += d.numel()
+            if n:
+                n_layer += n
+                worst = max(worst, float(a.margin[d].max()))
+                if li == 0:
+                    first_worst = max(first_worst, float(a.margin[d].max()))
+        flips += n_layer
+        first += n_layer if li == 0 else 0
+        per_layer.append(n_layer)
+        m.record = None
+    free_errs = [rel_err(torch, a[:, :cfg.vocab], b[:, :cfg.vocab])[0]
+                 for a, b in zip(run["logits"], free["logits"])]
+    log(f"phase 9c: {cfg.name} plain path routing on its own "
+        f"(teacher-forced): {flips} of {total} (layer, token) routes "
+        f"flipped against phase 8c (per layer {per_layer}), largest "
+        f"flipped top-1/top-2 margin {worst:.3e}; in layer 0, where only "
+        f"the attention differs upstream, {first} flips, largest margin "
+        f"{first_worst:.3e}; logits rel err prefill "
+        f"{free_errs[0]:.3e}, decode max {max(free_errs[1:]):.3e} (not "
+        f"gated)")
+    del free
+    return dict(errs, flips=flips, routes=total, worst_margin=worst,
+                first_flips=first, first_worst_margin=first_worst)
+
+
+def moe_layer_timing(torch, MOE, ffn, n_tokens: int) -> dict:
+    """CUDA-event time of one MoE FFN call on ``n_tokens`` tokens, beside
+    its bound -- the expert products over all E x C slots, the shared
+    expert and the router at the bf16 peak, against every weight read
+    once -- and one call under ``torch.profiler``."""
+    gen = torch.Generator(device="cuda").manual_seed(n_tokens)
+    dims = ffn.dims
+    x = torch.randn((n_tokens, dims.d_model), generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: ffn(x), iters=20)
+    c = MOE.capacity(n_tokens, dims)
+    d, f, e = dims.d_model, dims.d_ff, dims.n_experts
+    fs = f * dims.n_shared
+    flops = 2 * 3 * (e * c * d * f + n_tokens * d * fs) + 2 * n_tokens * d * e
+    bytes_moved = (sum(t.numel() * t.element_size() for t in
+                       ffn.parameters()) + 2 * x.numel() * x.element_size())
+    prof = profile_region(torch, lambda: ffn(x))
+    return dict(bound_entry(ms, None, None, bytes_moved, flops),
+                tokens=n_tokens, capacity=c, prof=prof)
+
+
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2391,7 +2667,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch.nn.functional as F
+    from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
     from repro_torch.configs.jamba15_large_398b import ONE_CHIP
+    from repro_torch.configs.llama4_scout_17b_a16e import (
+        ONE_CHIP as LLAMA4_ONE_CHIP)
     from repro_torch.core import allocator, engine, headline, workloads
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
@@ -2405,6 +2684,8 @@ def main() -> int:
     from repro_torch.kernels.zns_alloc import ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import model as MDL
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TT
 
     t_start = time.perf_counter()
     card = torch.cuda.get_device_name(0)
@@ -2653,6 +2934,46 @@ def main() -> int:
                               hq=ONE_CHIP.n_heads,
                               hkv=ONE_CHIP.n_kv_heads, d=128, n_caches=4,
                               seq=JAMBA_PROMPT + JAMBA_TOKENS)
+    jamba = (f"{ONE_CHIP.name} one-card cut", run["counts"],
+             dict(attn_t, ssm_scan=ssm_t))
+    del run                         # the Jamba cut's weights and caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7c. deepseek-v2's routed layer at its published size
+    phase_moe_layer(torch, MOE, TT.moe_dims(DEEPSEEK))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8c. the MoE path: the one-card llama4-scout cut through both
+    # attention kernels
+    run = phase_llama4(torch, serve, TT, MOE, LLAMA4_ONE_CHIP, kernels,
+                       {"zns_alloc": ops, "page_clock": pc_ops})
+
+    # 9c. the plain attention under replayed routes, against it; then
+    # the plain path routing on its own
+    phase_llama4_ref(torch, serve, TT, run)
+
+    # 10c. timing: one MoE layer at prefill and decode size, the
+    # attention kernels at G 5, a second serve run, a profiled step
+    ffn = moe_layers(TT, run["model"])[0]
+    for n in (LLAMA4_BATCH * LLAMA4_PROMPT, LLAMA4_BATCH):
+        t = moe_layer_timing(torch, MOE, ffn, n)
+        pr = t["prof"]
+        log(f"phase 10c: one {LLAMA4_ONE_CHIP.name} MoE layer at T = {n} "
+            f"(capacity {t['capacity']}): {t['ms']:.6f} ms "
+            f"({t['bound_ms'] / t['ms']:.4f} of its bound), bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {t['bytes']} bytes, "
+            f"{t['flops']} flop); profiled call: {pr['device_events']} "
+            f"device events, busy {pr['busy_us']:.1f} us of "
+            f"{pr['wall_us']:.1f} us wall")
+    del ffn
+    llama4_t = log_serve_timing(
+        torch, F, serve, MDL, run, "10c", fops, fref, dops, dref, usage,
+        b=LLAMA4_BATCH, s=LLAMA4_PROMPT, hq=LLAMA4_ONE_CHIP.n_heads,
+        hkv=LLAMA4_ONE_CHIP.n_kv_heads, d=128,
+        n_caches=LLAMA4_ONE_CHIP.n_layers,
+        seq=LLAMA4_PROMPT + LLAMA4_TOKENS)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]
@@ -2665,8 +2986,8 @@ def main() -> int:
         "ssm_scan": "src/repro/kernels/ssm_scan/ssm_scan.py:36"}
     # one entry per kernel and serving path, each with that path's
     # launches and the times at that path's shapes
-    paths = [granite, (f"{ONE_CHIP.name} one-card cut", run["counts"],
-                       dict(attn_t, ssm_scan=ssm_t))]
+    paths = [granite, jamba, (f"{LLAMA4_ONE_CHIP.name} one-card cut",
+                              run["counts"], llama4_t)]
     serve_entries = [{
         "name": name,
         "path": path,

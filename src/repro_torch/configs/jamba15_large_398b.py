@@ -38,8 +38,9 @@ CONFIG = register(ArchConfig(
 #: * depth 72 -> 8: one whole period of the layer pattern, 7 Mamba layers
 #:   and the attention layer at slot 3, the published 7:1 ratio;
 #: * experts 16 -> none: a dense SwiGLU FFN of the published expert width
-#:   (24576) on all 8 layers, since one period with all 16 experts is
-#:   ~45 B parameters (89 GB in bf16) and the MoE layer is not ported.
+#:   (24576) on all 8 layers, for memory: one period holds 4 MoE layers
+#:   of 16 experts of 604 M parameters each, ~45 B parameters (89 GB in
+#:   bf16) in all, more than the card's 80 GB.
 #:
 #: 8,462,049,280 parameters, 16.9 GB in bf16.  Not registered: the
 #: registry mirrors the reference's.

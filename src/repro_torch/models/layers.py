@@ -22,8 +22,8 @@ def _normal(shape, generator: Optional[torch.Generator], device,
     device = torch.device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device) * scale).to(dtype)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device).mul_(scale).to(dtype)
 
 
 def dense_init(generator, d_in: int, d_out: int, *, device,

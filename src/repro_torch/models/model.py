@@ -1,5 +1,6 @@
 """Model facade for serving (the port of ``repro.models.model``'s serving
-half): the prefill and decode step functions and the parameter count.
+half): the prefill and decode step functions and the parameter
+counts.
 
 ``attn_impl`` and ``ssm_impl`` are ``"kernel"`` (the Hopper attention
 and selective-scan kernels on CUDA tensors, their plain versions on CPU
@@ -37,3 +38,14 @@ def param_count(cfg: ArchConfig) -> int:
     allocated)."""
     model = T.init_params(cfg, device="meta")
     return sum(p.numel() for p in model.parameters())
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Active parameters per token (MoE: the top-k and shared experts of
+    the routed pool)."""
+    total = param_count(cfg)
+    if not cfg.n_experts:
+        return total
+    per_expert = 3 * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+    n_moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    return total - (cfg.n_experts - cfg.top_k) * per_expert * n_moe_layers

@@ -1,37 +1,43 @@
 """Architecture assembly for serving: stacks of ``"attn"`` and
-``"mamba"`` blocks (the port of ``repro.models.transformer``'s serving
-path).
+``"mamba"`` blocks with dense or MoE FFNs (the port of
+``repro.models.transformer``'s serving path).
 
 The reference stacks parameters per pattern slot and runs
 ``jax.lax.scan`` over repetitions; the port holds one :class:`Block` per
-layer in an ``nn.ModuleList`` and loops over them in Python.  Global
-layer ``n_prefix + r * len(pattern) + j`` is the reference's slot ``j``,
-repetition ``r`` -- :func:`params_from_numpy` / :func:`params_to_numpy`
-map between the two.
+layer in an ``nn.ModuleList`` and loops over them in Python
+(:func:`layer_plan` gives every layer's kind and FFN).  Global layer
+``n_prefix + r * len(pattern) + j`` is the reference's slot ``j``,
+repetition ``r``; with ``first_layer_dense`` layer 0 is the reference's
+``"first"`` block, an attention layer with the ``dense_d_ff`` FFN before
+the pattern.  :func:`params_from_numpy` / :func:`params_to_numpy` map
+between the two.
 
 Supported: ``"attn"`` (self-attention) and ``"mamba"`` blocks, each with
-a dense FFN (SwiGLU or GELU, RMSNorm or LayerNorm) or none.  Each kind's
-mixer init, cache, prefill and decode, and its names in the reference's
-trees, are one entry of :data:`KINDS`.  mLSTM/sLSTM
-and cross-attention blocks, MoE FFNs, MLA and a dense first layer raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+a dense FFN (SwiGLU or GELU, RMSNorm or LayerNorm), an MoE FFN
+(:class:`MoEFFN`, ``models/moe.py``) on the layers ``cfg.is_moe_layer``
+picks, or none; and the dense first layer.  Each kind's mixer init,
+cache, prefill and decode, and its names in the reference's trees, are
+one entry of :data:`KINDS`.  MLA (item 11d), mLSTM/sLSTM blocks (11b),
+and cross-attention and the encoder (11c) raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 
 Caches hold the two kinds of state side by side, each stacked over the
 layers of its kind (:func:`cache_slots` maps a layer to its kind and its
 index there): ``{"k", "v"}`` of shape ``(n_attn, B, max_seq, Hkv, D)`` in
-bf16 for the attention layers, and ``{"conv", "ssm"}`` of shapes
-``(n_mamba, B, K-1, d_inner)`` bf16 and ``(n_mamba, B, d_inner, N)`` f32
-for the Mamba layers; a dense model has only ``k`` and ``v``, one per
-layer.  Prefill writes the KV cache in place and, like the reference,
-leaves the Mamba state as it was (``repro.models.transformer`` skips
-the terminal state: decode starts every Mamba layer from its cached
-state, zero after :func:`init_caches`).  Decode writes both in place.
+bf16 for the attention layers (the dense first layer's at index 0), and
+``{"conv", "ssm"}`` of shapes ``(n_mamba, B, K-1, d_inner)`` bf16 and
+``(n_mamba, B, d_inner, N)`` f32 for the Mamba layers; a dense model has
+only ``k`` and ``v``, one per layer.  Prefill writes the KV cache in
+place and, like the reference, leaves the Mamba state as it was
+(``repro.models.transformer`` skips the terminal state: decode starts
+every Mamba layer from its cached state, zero after :func:`init_caches`).
+Decode writes both in place.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +47,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 _QUEUE = "ROADMAP Queue 1 item 11"
 
@@ -52,28 +59,20 @@ def _check_supported(cfg: ArchConfig) -> None:
     if cfg.mla:
         raise NotImplementedError(
             f"{cfg.name}: multi-head latent attention (models/mla.py) is "
-            f"not ported yet ({_QUEUE})")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs (models/moe.py) are not ported yet "
-            f"({_QUEUE})")
-    if cfg.first_layer_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: a dense first layer outside the pattern is not "
-            f"ported yet ({_QUEUE}, with models/moe.py)")
+            f"not ported yet ({_QUEUE}d)")
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder and cross-attention (VLM/audio) are "
-            f"not ported yet ({_QUEUE})")
+            f"not ported yet ({_QUEUE}c)")
     for kind in cfg.pattern:
         if kind in ("mlstm", "slstm"):
             raise NotImplementedError(
                 f"{cfg.name}: {kind} blocks (models/xlstm.py) are not "
-                f"ported yet ({_QUEUE})")
+                f"ported yet ({_QUEUE}b)")
         if kind == "cross":
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention blocks (VLM/audio) are not "
-                f"ported yet ({_QUEUE})")
+                f"ported yet ({_QUEUE}c)")
         if kind not in KINDS:
             raise ValueError(kind)
 
@@ -99,6 +98,22 @@ def n_scan_reps(cfg: ArchConfig) -> int:
         raise ValueError(f"{cfg.name}: {n} layers not divisible by "
                          f"pattern {len(cfg.pattern)}")
     return n // len(cfg.pattern)
+
+
+def layer_plan(cfg: ArchConfig) -> List[Tuple[str, bool]]:
+    """(kind, is_moe) of every layer in order: the dense first layer,
+    then the pattern's slots, repetition by repetition."""
+    first = [("attn", False)] if cfg.first_layer_dense else []
+    return first + slot_kinds(cfg) * n_scan_reps(cfg)
+
+
+def moe_dims(cfg: ArchConfig) -> MOE.MoEDims:
+    return MOE.MoEDims(cfg.n_experts, cfg.top_k, cfg.d_model,
+                       cfg.moe_d_ff or cfg.d_ff, cfg.n_shared_experts,
+                       cfg.capacity_factor,
+                       route_groups=cfg.route_groups,
+                       route_limit=cfg.route_limit,
+                       int8_dispatch=cfg.int8_dispatch)
 
 
 def _mask_padded(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -154,23 +169,65 @@ class Norm(nn.Module):
         return L.layernorm(xf, self.w, self.b, dtype=x.dtype)
 
 
+def _params(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _frozen(v) for k, v in tree.items()})
+
+
+class MoEFFN(nn.Module):
+    """An MoE FFN: the reference's ``ffn`` subtree (``router`` (d, E) f32,
+    ``w_gate`` / ``w_up`` (E, d, f), ``w_down`` (E, f, d), and a
+    ``shared`` SwiGLU when the config has shared experts) and its
+    :class:`~repro_torch.models.moe.MoEDims`.
+
+    ``record`` and ``replay`` are check hooks, not features: with
+    ``record`` a list, each call appends its
+    :class:`~repro_torch.models.moe.Routing`; with ``replay`` an iterator
+    of ``(T, k)`` expert ids, each call routes its tokens to the next
+    one's experts (``moe_apply``'s ``routes``)."""
+
+    def __init__(self, dims: MOE.MoEDims, tree: Dict):
+        super().__init__()
+        self.dims = dims
+        self.router = _frozen(tree["router"])
+        self.w_gate = _frozen(tree["w_gate"])
+        self.w_up = _frozen(tree["w_up"])
+        self.w_down = _frozen(tree["w_down"])
+        self.shared = _params(tree["shared"]) if "shared" in tree else None
+        self.record: Optional[list] = None
+        self.replay: Optional[Iterator[torch.Tensor]] = None
+
+    def tree(self) -> Dict:
+        p = {"router": self.router, "w_gate": self.w_gate,
+             "w_up": self.w_up, "w_down": self.w_down}
+        if self.shared is not None:
+            p["shared"] = dict(self.shared)
+        return p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (T, d), every token of the call."""
+        routes = next(self.replay) if self.replay is not None else None
+        out, routing = MOE.moe_forward(self.tree(), x, self.dims, routes)
+        if self.record is not None:
+            self.record.append(routing)
+        return out
+
+
 class Block(nn.Module):
     """One layer: a pre-norm mixer -- self-attention (``kind="attn"``)
-    or the Mamba mixer (``kind="mamba"``) -- and a dense FFN."""
+    or the Mamba mixer (``kind="mamba"``) -- and a dense FFN (a tree of
+    tensors), an MoE FFN or none."""
 
     def __init__(self, cfg: ArchConfig, kind: str, norm1: Norm,
                  mixer: Dict[str, torch.Tensor], norm2: Optional[Norm],
-                 ffn: Optional[Dict[str, torch.Tensor]]):
+                 ffn):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
         self.norm1 = norm1
-        self.mixer = nn.ParameterDict({k: _frozen(v) for k, v in
-                                       mixer.items()})
+        self.mixer = _params(mixer)
         self.norm2 = norm2
-        self.ffn = (nn.ParameterDict({k: _frozen(v) for k, v in
-                                      ffn.items()})
-                    if ffn is not None else None)
+        self.ffn = (ffn if ffn is None or isinstance(ffn, MoEFFN)
+                    else _params(ffn))
 
     def _dims(self) -> dict:
         cfg = self.cfg
@@ -182,6 +239,11 @@ class Block(nn.Module):
         if self.ffn is None:
             return res
         h = self.norm2(res)
+        if isinstance(self.ffn, MoEFFN):
+            # every token of the call at once: capacity and drops depend
+            # on the whole batch
+            return _add(res, self.ffn(h.reshape(-1, h.shape[-1])).reshape(
+                h.shape))
         if self.cfg.act == "swiglu":
             return _add(res, L.swiglu(h, self.ffn))
         return _add(res, L.gelu_mlp(h, self.ffn))
@@ -309,9 +371,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     embed = L.embedding_init(generator, cfg.padded_vocab, cfg.d_model,
                              device=device, dtype=dtype)
     blocks = []
-    for kind in cfg.layer_kinds():
+    for kind, moe in layer_plan(cfg):
         mixer = KINDS[kind].init(generator, cfg, device, dtype)
-        ffn = _ffn_params(generator, cfg, device, dtype)
+        ffn = (MoEFFN(moe_dims(cfg), MOE.moe_init(
+            generator, moe_dims(cfg), device=device, dtype=dtype))
+            if moe else _ffn_params(generator, cfg, device, dtype))
         blocks.append(Block(cfg, kind, _norm_params(cfg, device, dtype),
                             mixer,
                             _norm_params(cfg, device, dtype)
@@ -323,7 +387,7 @@ def cache_slots(cfg: ArchConfig) -> List[Tuple[str, int]]:
     """(kind, index in that kind's cache stack) for every layer."""
     seen = dict.fromkeys(KINDS, 0)
     out = []
-    for kind in cfg.layer_kinds():
+    for kind, _ in layer_plan(cfg):
         out.append((kind, seen[kind]))
         seen[kind] += 1
     return out
@@ -334,7 +398,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
     """Zeroed caches, each kind's stacked over the layers of that kind
     (a layer's shapes and dtypes read off its kind's cache on ``meta``)."""
     _check_supported(cfg)
-    kinds = cfg.layer_kinds()
+    kinds = [kind for kind, _ in layer_plan(cfg)]
     caches = {}
     for name, kind in KINDS.items():
         n = kinds.count(name)
@@ -407,11 +471,6 @@ def _to_numpy(t: torch.Tensor, bf16_dtype=None) -> np.ndarray:
     return t.numpy()
 
 
-def _layer_index(cfg: ArchConfig, j: int, r: int) -> int:
-    n_prefix = 1 if cfg.first_layer_dense else 0
-    return n_prefix + r * len(cfg.pattern) + j
-
-
 def _norm_from(cfg: ArchConfig, tree, device) -> Norm:
     if cfg.norm == "rmsnorm":
         return Norm("rmsnorm", _from_numpy(tree, device))
@@ -433,25 +492,42 @@ def _rep(tree, r: int):
     return np.asarray(tree)[r]
 
 
+def _tree_from(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from(v, device) for k, v in tree.items()}
+    return _from_numpy(tree, device)
+
+
+def _tree_to(tree, bf16_dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, bf16_dtype) for k, v in tree.items()}
+    return _to_numpy(tree, bf16_dtype)
+
+
+def _block_from(cfg: ArchConfig, kind: str, moe: bool, p, device) -> Block:
+    """One layer from one (unstacked) block of the reference's tree."""
+    mixer = _tree_from(p["mixer"][KINDS[kind].mixer_key], device)
+    n2 = ffn = None
+    if "ffn" in p:
+        ffn = _tree_from(p["ffn"], device)
+        if moe:
+            ffn = MoEFFN(moe_dims(cfg), ffn)
+        n2 = _norm_from(cfg, p["norm2"], device)
+    return Block(cfg, kind, _norm_from(cfg, p["norm1"], device), mixer, n2,
+                 ffn)
+
+
 def params_from_numpy(cfg: ArchConfig, tree, device="cuda") -> Transformer:
     """The reference's parameter tree (``jax.tree.map(np.asarray,
-    params)``: per-slot leaves stacked over repetitions) as the port's
-    :class:`Transformer`, bit for bit."""
-    blocks: List[Optional[Block]] = [None] * cfg.n_layers
-    for j, slot in enumerate(tree["slots"]):
-        kind = cfg.pattern[j]
-        for r in range(n_scan_reps(cfg)):
-            p = _rep(slot, r)
-            mixer = {k: _from_numpy(v, device)
-                     for k, v in p["mixer"][KINDS[kind].mixer_key].items()}
-            n2 = ffn = None
-            if "ffn" in p:
-                ffn = {k: _from_numpy(v, device)
-                       for k, v in p["ffn"].items()}
-                n2 = _norm_from(cfg, p["norm2"], device)
-            blocks[_layer_index(cfg, j, r)] = Block(
-                cfg, kind, _norm_from(cfg, p["norm1"], device), mixer, n2,
-                ffn)
+    params)``: per-slot leaves stacked over repetitions, and the dense
+    first layer under ``"first"``) as the port's :class:`Transformer`,
+    bit for bit."""
+    blocks = ([_block_from(cfg, "attn", False, tree["first"], device)]
+              if cfg.first_layer_dense else [])
+    for r in range(n_scan_reps(cfg)):
+        for j, (kind, moe) in enumerate(slot_kinds(cfg)):
+            blocks.append(_block_from(cfg, kind, moe,
+                                      _rep(tree["slots"][j], r), device))
     return Transformer(cfg, _from_numpy(tree["embed"], device), blocks,
                        _norm_from(cfg, tree["final_norm"], device))
 
@@ -468,20 +544,24 @@ def params_to_numpy(model: Transformer, bf16_dtype=None):
 
     def one(b: Block):
         p = {"norm1": _norm_to(b.norm1, bf16_dtype),
-             "mixer": {KINDS[b.kind].mixer_key: {
-                 k: _to_numpy(v, bf16_dtype) for k, v in b.mixer.items()}}}
+             "mixer": {KINDS[b.kind].mixer_key: _tree_to(dict(b.mixer),
+                                                         bf16_dtype)}}
         if b.ffn is not None:
             p["norm2"] = _norm_to(b.norm2, bf16_dtype)
-            p["ffn"] = {k: _to_numpy(v, bf16_dtype)
-                        for k, v in b.ffn.items()}
+            p["ffn"] = _tree_to(b.ffn.tree() if isinstance(b.ffn, MoEFFN)
+                                else dict(b.ffn), bf16_dtype)
         return p
 
-    slots = [stacked([one(model.blocks[_layer_index(cfg, j, r)])
-                      for r in range(n_scan_reps(cfg))])
-             for j in range(len(cfg.pattern))]
-    return {"embed": _to_numpy(model.embed, bf16_dtype),
-            "final_norm": _norm_to(model.final_norm, bf16_dtype),
-            "slots": slots}
+    blocks = list(model.blocks)
+    out = {"embed": _to_numpy(model.embed, bf16_dtype),
+           "final_norm": _norm_to(model.final_norm, bf16_dtype)}
+    if cfg.first_layer_dense:
+        out["first"] = one(blocks.pop(0))
+    n = len(cfg.pattern)
+    out["slots"] = [stacked([one(blocks[r * n + j])
+                             for r in range(n_scan_reps(cfg))])
+                    for j in range(n)]
+    return out
 
 
 def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
@@ -489,13 +569,20 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     """The port's caches in the reference's layout: ``{"slots": [...]}``
     with ``{"kv": {"k", "v"}}`` (leaves ``(reps, B, S, Hkv, D)``) for an
     attention slot and ``{"mamba": {"conv", "ssm"}}`` (leaves ``(reps, B,
-    K-1, d_inner)`` and ``(reps, B, d_inner, N)``) for a Mamba slot."""
+    K-1, d_inner)`` and ``(reps, B, d_inner, N)``) for a Mamba slot, and
+    the dense first layer's ``{"kv": {"k", "v"}}`` under ``"first"``."""
     reps = n_scan_reps(cfg)
     where = cache_slots(cfg)
-    slots = []
-    for j, kind in enumerate(cfg.pattern):
-        idx = [where[_layer_index(cfg, j, r)][1] for r in range(reps)]
-        slots.append({KINDS[kind].cache_key: {
+    n_prefix = 1 if cfg.first_layer_dense else 0
+
+    def layer(kind, idx):
+        return {KINDS[kind].cache_key: {
             name: _to_numpy(caches[name][idx], bf16_dtype)
-            for name in KINDS[kind].cache_names}})
-    return {"slots": slots}
+            for name in KINDS[kind].cache_names}}
+
+    out = {"slots": [layer(kind, [where[n_prefix + r * len(cfg.pattern)
+                                        + j][1] for r in range(reps)])
+                     for j, kind in enumerate(cfg.pattern)]}
+    if cfg.first_layer_dense:
+        out["first"] = layer("attn", where[0][1])
+    return out

@@ -101,8 +101,16 @@ def test_param_count_on_meta_equals_the_reference(name):
         assert TM.param_count(get_arch(name)) == 8_171_884_544
 
 
+def _still_unported(name: str) -> bool:
+    """MLA (item 11d), mLSTM/sLSTM (11b), cross-attention and the encoder
+    (11c): what the port does not serve yet."""
+    cfg = get_arch(name)
+    return bool(cfg.mla or cfg.encoder_layers
+                or {"mlstm", "slstm", "cross"} & set(cfg.pattern))
+
+
 @pytest.mark.parametrize("name", [a for a in list_archs()
-                                  if a not in DENSE])
+                                  if _still_unported(a)])
 def test_unported_blocks_raise_naming_the_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init_params(get_arch(name).reduced(), device="meta")
