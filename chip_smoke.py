@@ -185,15 +185,41 @@ then, with the Jamba cut freed, the MoE path:
      the bf16 peak; every weight read once) with its device events under
      ``torch.profiler``, flash (G 5) and decode attention (G 5) beside
      their plain versions and SDPA -- a second timed serve run, and one
-     profiled decode step.
+     profiled decode step;
+
+then, with the llama4 cut freed, multi-head latent attention:
+
+7d. the flash kernel above head dim 128 against its plain version, f32
+    and bf16: the deepseek-v2 cut's prefill shape (B 8, 128 heads, S
+    512, D 192, V zero-padded from 128), S and Sk one before, on and one
+    after the bf16 kernel's 64-row K/V tiles and 128-row q tiles, D 136
+    and 184, and random ragged shapes with G > 1;
+8d. ``serve.build`` and ``serve.generate`` for the one-card cut of
+    deepseek-v2-236b (``configs/deepseek_v2_236b.ONE_CHIP``: MLA, all 160
+    experts and the 2 shared ones at published widths, depth 60 -> 10;
+    weights from seed 0 on the card): 8 prompts of 512 tokens, 31 greedy
+    decode steps, every launch count zeroed just before and read just
+    after -- ``flash_attention`` 10 in prefill (D 192), no
+    ``decode_attention`` launch (MLA's absorbed decode is plain products,
+    as in the reference), no ``ssm_scan``, ``zns_alloc`` or
+    ``page_clock`` launch -- with every MoE layer recording its routes;
+    the peak device memory and the pairs prefill dropped;
+9d. as 9c: the plain attention under replayed routes, every step's
+    logits and the final ``c_kv`` / ``k_rope`` caches held to 8d's; then
+    routing on its own, the flipped routes counted (not gated);
+10d. CUDA-event times: one MLA decode layer beside its bound (its
+     weights and latent rows read once), one MoE layer at T = 4096 and
+     T = 8 beside its bound, flash at D 192 beside its device time per
+     launch, its plain version and SDPA, a second timed serve run, and
+     one profiled decode step.
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
 per kernel and path (``path``: ``paper_report``, ``kv_zn540`` and
 ``fleet_sweep_zn540`` for the two fused ``zns_alloc`` selections, the
 Pallas contract and phase 14's legacy ALLOCs for its row kernel,
-granite-3-8b, the Jamba cut and the llama4-scout cut for the serving
-kernels, phase 14 for ``page_clock``), each with that
+granite-3-8b, the Jamba cut, the llama4-scout cut and the deepseek-v2
+cut for the serving kernels, phase 14 for ``page_clock``), each with that
 path's launches and the times at its shapes -- and ``{"ok": true,
 "device": {...}}``.
 """
@@ -240,7 +266,7 @@ KERNEL_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}
 #: kernel path vs plain path through 40 bf16 layers: the two attention
 #: outputs differ by an ulp of bf16 here and there, and every layer
 #: rounds its residual stream to bf16 again.  For an MoE stack it holds
-#: under replayed routes (phase 9c): routing is discontinuous, so an ulp
+#: under replayed routes (phases 9c, 9d): routing is discontinuous, so an ulp
 #: in an attention output may flip a near-tied expert choice, and the
 #: check is of the kernels, not of the router
 SERVE_TOL = 5e-2
@@ -251,6 +277,10 @@ JAMBA_PARAMS = 8_462_049_280
 #: 32 tokens out
 LLAMA4_BATCH, LLAMA4_PROMPT, LLAMA4_TOKENS = 8, 512, 32
 LLAMA4_PARAMS = 36_269_102_080
+#: the MLA slice: deepseek-v2's one-card cut, 8 prompts of 512 tokens, 32
+#: tokens out
+DEEPSEEK_BATCH, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 8, 512, 32
+DEEPSEEK_PARAMS = 36_611_322_880
 #: phase 7c: deepseek-v2's routed layer, run twice at a prefill-sized and
 #: a decode-sized call, and held to a CPU run of the same function at
 #: MOE_CPU_TOKENS; only an f32 near-tie (a gap under ROUTE_FLIP_MARGIN
@@ -2062,9 +2092,10 @@ def read_counts(kernels) -> dict:
 
 def check_serve(torch, run, counts, kernels, n_params, want_params) -> None:
     """Exact launch counts per phase (a prefill kernel launch per layer
-    of its kind, a decode-attention launch per attention layer and step,
-    nothing crossed), the counters agreeing with them, and tokens and
-    logits in range."""
+    of its kind, a decode-attention launch per attention layer and step --
+    none for MLA, whose absorbed decode is plain products -- nothing
+    crossed), the counters agreeing with them, and tokens and logits in
+    range."""
     cfg = run["cfg"]
     kinds = cfg.layer_kinds()
     n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
@@ -2072,7 +2103,8 @@ def check_serve(torch, run, counts, kernels, n_params, want_params) -> None:
     want = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
                         "ssm_scan": n_mamba},
             "decode": {"flash_attention": 0,
-                       "decode_attention": n_attn * steps, "ssm_scan": 0}}
+                       "decode_attention": 0 if cfg.mla else n_attn * steps,
+                       "ssm_scan": 0}}
     check(n_params == want_params,
           f"{cfg.name} has {n_params} parameters, not {want_params}")
     check(run["launches"] == want,
@@ -2177,12 +2209,14 @@ def phase_serve_ref(torch, serve, run, phase: str) -> dict:
 
 
 def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
-                     d, n_caches, seq) -> dict:
+                     d, n_caches, seq, v_dim=None) -> dict:
     """CUDA-event times at one serving path's shapes: each kernel, its
     plain version and one SDPA call, with the bound from this run's
     inputs.  Decode is timed over ``n_caches`` distinct caches of ``seq``
     rows at full length, so each call reads its cache from device memory
-    as a real step does."""
+    as a real step does; a path with no decode kernel (MLA) passes
+    ``n_caches=0``.  ``v_dim``: V's columns past it are zero (MLA's
+    padding)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16 = torch.bfloat16
 
@@ -2195,6 +2229,8 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
     q = randn(b, s, hq, d).transpose(1, 2)
     k = randn(b, s, hkv, d).transpose(1, 2)
     v = randn(b, s, hkv, d).transpose(1, 2)
+    if v_dim is not None:
+        v[..., v_dim:] = 0
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
     iters = max(10, 50 * 512 * 512 // (s * s))
     before = fops.launches
@@ -2211,10 +2247,22 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
         qc, kc, vc, is_causal=True, enable_gqa=True))
     bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())
     flops = 4 * d * b * hq * s * (s + 1) // 2     # the causal pairs
-    out["flash_attention"] = dict(bound_entry(ms, plain_ms, library_ms,
-                                              bytes_moved, flops),
-                                  device_us=flash_dev_us)
+    plan = ("2 x 64-column swizzle atoms, a 2-stage cp.async ring of "
+            "128-row K/V tiles, wgmma m64n128k16 for Q.K^T and P.V"
+            if d <= 128 else
+            "3 x 64-column swizzle atoms, a 2-stage cp.async ring of "
+            "64-row K/V tiles, wgmma m64n64k16 for Q.K^T and m64n192k16 "
+            "for P.V")
+    out["flash_attention"] = dict(
+        bound_entry(ms, plain_ms, library_ms, bytes_moved, flops),
+        device_us=flash_dev_us,
+        design=f"bf16 on the tensor cores: {plan} (Q.K^T with both "
+               f"operands in shared memory, P.V with P in registers), 2 "
+               f"warpgroups per 128-row q tile = {b * hq * -(-s // 128)} "
+               f"CTAs")
     del q, k, v, qc, kc, vc
+    if not n_caches:
+        return out
 
     qd = randn(b, hq, d)
     lengths = torch.full((b,), seq, dtype=torch.int32, device="cuda")
@@ -2259,11 +2307,6 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
                f"threads, 16-byte cp.async into a two-slot ring (a K tile "
                f"and a V tile of 64 rows, each refilled once consumed), "
                f"last-CTA log-sum-exp combine in the same launch")
-    out["flash_attention"]["design"] = (
-        "bf16 on the tensor cores: wgmma m64n128k16 for Q.K^T (both "
-        "operands in shared memory) and P.V (P in registers), a 2-stage "
-        "cp.async ring of 128-row K/V tiles, 2 warpgroups per 128-row q "
-        f"tile = {b * hq * -(-s // 128)} CTAs")
     del caches, laid
     return out
 
@@ -2328,17 +2371,21 @@ def device_us(torch, fn, name: str, reps: int) -> float:
     ``reps`` calls of ``fn`` under ``torch.profiler`` (the kernel alone,
     free of the host's launch cost), or None when the profiler saw none.
     A region of one or a few launches can come back without device
-    events, so it holds many."""
+    events, so it holds many; and a whole profile sometimes comes back
+    with no device event at all, so it is taken up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
     spans = [e.time_range.elapsed_us() for e in device if name in e.name]
     if not spans:
         log(f"device_us: no device event named {name!r} among "
@@ -2387,8 +2434,9 @@ def profile_decode_step(torch, MDL, run) -> dict:
     cfg, model, caches = run["cfg"], run["model"], run["caches"]
     step = MDL.make_decode_step(cfg)
     token = run["tokens"][:, -1]
-    pos = torch.full((token.shape[0],), caches["k"].shape[2] - 1,
-                     dtype=torch.int32, device="cuda")
+    last = run["prompts"].shape[1] + run["tokens"].shape[1] - 1
+    pos = torch.full((token.shape[0],), last, dtype=torch.int32,
+                     device="cuda")
     return profile_region(torch, lambda: step(model, token, caches, pos),
                           "decode_kernel")
 
@@ -2399,7 +2447,11 @@ def log_serve_timing(torch, F, serve, MDL, run, phase, fops, fref, dops,
     (with each kernel's design and ``ptxas`` resources from ``usage``),
     a second timed serve run, and one profiled decode step."""
     attn_t = attention_timing(torch, F, fops, fref, dops, dref, **shapes)
-    marks = {"flash_attention": "flash_fwd_tc",
+    # the bf16 flash kernel's instantiation at this head dim (column
+    # atoms, KV tile rows)
+    marks = {"flash_attention": ("flash_fwd_tcILi2ELi128E"
+                                 if shapes["d"] <= 128
+                                 else "flash_fwd_tcILi3ELi64E"),
              "decode_attention": "decode_kernel_tc"}
     for name, t in attn_t.items():
         res = [u for m, u in usage[name].items() if marks[name] in m]
@@ -2525,23 +2577,24 @@ def moe_layers(TT, model) -> list:
     return [m for m in model.modules() if isinstance(m, TT.MoEFFN)]
 
 
-def phase_llama4(torch, serve, TT, MOE, cfg, kernels, others) -> dict:
-    """The one-card llama4-scout cut through ``serve.build`` and
-    ``serve.generate`` with weights from seed 0 on the card, every MoE
-    layer recording its routes, every launch count (``others``: kernels
-    this path must not launch) zeroed just before the run and read just
-    after."""
+def phase_moe_serve(torch, serve, TT, MOE, cfg, kernels, others, *,
+                    phase: str, want_params: int, batch: int, prompt: int,
+                    tokens: int) -> dict:
+    """A one-card MoE cut through ``serve.build`` and ``serve.generate``
+    with weights from seed 0 on the card, every MoE layer recording its
+    routes, every launch count (``others``: kernels this path must not
+    launch) zeroed just before the run and read just after."""
     torch.cuda.reset_peak_memory_stats()
     model = serve.build(cfg, seed=0, device="cuda")
     n_params = sum(t.numel() for t in model.parameters())
     prompts = torch.from_numpy(serve.make_prompts(
-        cfg, LLAMA4_BATCH, LLAMA4_PROMPT, seed=0)).to("cuda")
+        cfg, batch, prompt, seed=0)).to("cuda")
     layers = moe_layers(TT, model)
     for m in layers:
         m.record = []
     for mod in list(kernels.values()) + list(others.values()):
         mod.reset_launches()
-    run = serve.generate(model, cfg, prompts, LLAMA4_TOKENS)
+    run = serve.generate(model, cfg, prompts, tokens)
     counts = read_counts(kernels)
     other = {"zns_alloc": sum(others["zns_alloc"].counts.values()),
              "page_clock": others["page_clock"].launches}
@@ -2551,35 +2604,39 @@ def phase_llama4(torch, serve, TT, MOE, cfg, kernels, others) -> dict:
         m.record = None
     run = dict(run, cfg=cfg, model=model, prompts=prompts,
                n_params=n_params, counts=counts, routes=routes)
-    check_serve(torch, run, counts, kernels, n_params, LLAMA4_PARAMS)
+    check_serve(torch, run, counts, kernels, n_params, want_params)
     check(other == {"zns_alloc": 0, "page_clock": 0},
           f"{cfg.name}: launched {other}")
-    check(tuple(run["tokens"].shape) == (LLAMA4_BATCH, LLAMA4_TOKENS)
-          and len(layers) == cfg.n_layers
-          and all(len(rec) == LLAMA4_TOKENS for rec in routes),
-          "llama4 token shape or route records")
+    n_moe = sum(moe for _, moe in TT.layer_plan(cfg))
+    check(tuple(run["tokens"].shape) == (batch, tokens)
+          and len(layers) == n_moe
+          and all(len(rec) == tokens for rec in routes),
+          f"{cfg.name}: token shape or route records")
     pairs = routes[0][0].keep.numel()
     cap = MOE.capacity(pairs // cfg.top_k, TT.moe_dims(cfg))
     dropped = [int((~rec[0].keep).sum()) for rec in routes]
-    steps = LLAMA4_TOKENS - 1
-    log(f"phase 8c: served {cfg.name} one-card cut ({n_params} "
-        f"parameters, {cfg.n_layers} MoE layers of {cfg.n_experts} "
-        f"experts, top-{cfg.top_k}, 1 shared) on cuda: {LLAMA4_BATCH} x "
-        f"{LLAMA4_PROMPT} prompt, {steps} decode steps; launches {counts} "
+    steps = tokens - 1
+    log(f"phase {phase}: served {cfg.name} one-card cut ({n_params} "
+        f"parameters, {cfg.n_layers} layers, {n_moe} of them MoE with "
+        f"{cfg.n_experts} experts, top-{cfg.top_k}, "
+        f"{cfg.n_shared_experts} shared; mla={cfg.mla}) on cuda: {batch} x "
+        f"{prompt} prompt, {steps} decode steps; launches {counts} "
         f"(prefill {run['launches']['prefill']}, decode "
         f"{run['launches']['decode']}), {other}; prefill "
         f"{run['prefill_s']:.6f} s, decode "
         f"{run['decode_s'] / steps * 1e3:.6f} ms/step (first run); peak "
-        f"device memory {peak_gb:.2f} GB; prefill dropped {sum(dropped)} "
-        f"of {pairs * cfg.n_layers} (token, expert) pairs at capacity "
-        f"{cap} (per layer {dropped}); first row "
+        f"device memory {peak_gb:.2f} GB "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); prefill "
+        f"dropped {sum(dropped)} of {pairs * n_moe} (token, expert) pairs "
+        f"at capacity {cap} (per layer {dropped}); first row "
         f"{run['tokens'][0, :12].tolist()}")
     return dict(run, peak_gb=peak_gb, dropped=dropped)
 
 
-def phase_llama4_ref(torch, serve, TT, run) -> dict:
-    """The plain path, teacher-forced with phase 8c's tokens, first with
-    every MoE layer replaying phase 8c's routes -- held to phase 8c's
+def phase_moe_serve_ref(torch, serve, TT, run, phase: str,
+                        served: str) -> dict:
+    """The plain path, teacher-forced with phase ``served``'s tokens,
+    first with every MoE layer replaying that run's routes -- held to its
     logits and caches at :data:`SERVE_TOL` -- then routing on its own,
     where the (layer, token) routes that flip are counted (a finding,
     not a gate)."""
@@ -2587,16 +2644,16 @@ def phase_llama4_ref(torch, serve, TT, run) -> dict:
     layers = moe_layers(TT, run["model"])
     for m, rec in zip(layers, run["routes"]):
         m.replay = iter([r.gate_idx for r in rec])
-    errs = phase_serve_ref(torch, serve, run, "9c")
+    errs = phase_serve_ref(torch, serve, run, phase)
     check(all(next(m.replay, None) is None for m in layers),
-          "phase 9c: a layer did not replay every recorded route")
+          f"phase {phase}: a layer did not replay every recorded route")
     for m in layers:
         m.replay, m.record = None, []
     free = serve.generate(run["model"], cfg, run["prompts"],
                           run["tokens"].shape[1], attn_impl="ref",
                           ssm_impl="ref", forced=run["tokens"])
-    # flips in layer 0 follow from the attention alone; a later layer's
-    # also from the flips before it
+    # flips in the first MoE layer follow from the attention alone; a
+    # later layer's also from the flips before it
     flips, total, worst, per_layer = 0, 0, 0.0, []
     first, first_worst = 0, 0.0
     for li, (m, rec) in enumerate(zip(layers, run["routes"])):
@@ -2616,12 +2673,13 @@ def phase_llama4_ref(torch, serve, TT, run) -> dict:
         m.record = None
     free_errs = [rel_err(torch, a[:, :cfg.vocab], b[:, :cfg.vocab])[0]
                  for a, b in zip(run["logits"], free["logits"])]
-    log(f"phase 9c: {cfg.name} plain path routing on its own "
+    log(f"phase {phase}: {cfg.name} plain path routing on its own "
         f"(teacher-forced): {flips} of {total} (layer, token) routes "
-        f"flipped against phase 8c (per layer {per_layer}), largest "
-        f"flipped top-1/top-2 margin {worst:.3e}; in layer 0, where only "
-        f"the attention differs upstream, {first} flips, largest margin "
-        f"{first_worst:.3e}; logits rel err prefill "
+        f"flipped against phase {served} (per MoE layer {per_layer}), "
+        f"largest flipped top-{cfg.top_k}/top-{cfg.top_k + 1} margin "
+        f"{worst:.3e}; in the first MoE "
+        f"layer, where only the attention differs upstream, {first} "
+        f"flips, largest margin {first_worst:.3e}; logits rel err prefill "
         f"{free_errs[0]:.3e}, decode max {max(free_errs[1:]):.3e} (not "
         f"gated)")
     del free
@@ -2651,6 +2709,115 @@ def moe_layer_timing(torch, MOE, ffn, n_tokens: int) -> dict:
                 tokens=n_tokens, capacity=c, prof=prof)
 
 
+# --------------------------------------------------------------------- #
+# phases 7d-10d: multi-head latent attention
+# --------------------------------------------------------------------- #
+def flash_mla_cases(rng) -> list:
+    """(b, hq, hkv, s, sk, d, causal, v_dim): the deepseek-v2 cut's
+    prefill (V zero-padded from 128 to 192); S and Sk one before, on and
+    one after the bf16 kernel's 64-row K/V tiles and 128-row q tiles; D
+    136 and 184; then random ragged shapes with G > 1."""
+    cases = [(DEEPSEEK_BATCH, 128, 128, DEEPSEEK_PROMPT, DEEPSEEK_PROMPT,
+              192, True, 128)]
+    for n in (63, 64, 65, 127, 128, 129):
+        cases.append((2, 4, 2, n, n, 192, True, None))
+    cases += [(1, 8, 1, 64, 191, 192, True, None),
+              (2, 4, 4, 129, 129, 136, True, None),
+              (1, 8, 2, 100, 300, 184, True, None),
+              (2, 4, 2, 65, 127, 192, False, None)]
+    for i in range(6):
+        g = (2, 4, 8)[i % 3]
+        hkv = 1 + i % 2
+        causal = i % 3 != 2
+        s = int(rng.integers(2, 300))
+        sk = s + int(rng.integers(0, 150)) if causal else int(
+            rng.integers(1, 300))
+        cases.append((int(rng.integers(1, 4)), g * hkv, hkv, s, sk,
+                      (192, 136, 184)[i % 3], causal, None))
+    return cases
+
+
+def phase_flash_mla(torch, np, fops, fref) -> float:
+    """The flash kernel above head dim 128 against its plain version on
+    the same CUDA tensors, f32 (the SIMT kernel) and bf16 (the wgmma
+    kernel's 64-row K/V tile plan); returns the worst max-abs error."""
+    rng = np.random.default_rng(20)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    worst, n, t0 = 0.0, 0, time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[str(dtype).split(".")[1]]
+        for b, hq, hkv, s, sk, d, causal, v_dim in flash_mla_cases(rng):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(dtype)
+                       for shape in ((b, hq, s, d), (b, hkv, sk, d),
+                                     (b, hkv, sk, d)))
+            if v_dim is not None:
+                v[..., v_dim:] = 0
+            before = fops.launches
+            got = fops.attention(q, k, v, causal=causal)
+            check(fops.launches == before + 1, "flash launch not counted")
+            want = fref.attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and err <= tol,
+                  f"phase 7d: flash_attention {dtype} "
+                  f"{(b, hq, hkv, s, sk, d)} causal={causal}: rel err "
+                  f"{err} > {tol}")
+            if v_dim is not None:
+                check(not bool(got[..., v_dim:].any()),
+                      "phase 7d: padded V columns gave a nonzero output")
+            worst = max(worst, diff)
+            n += 1
+            del q, k, v, got, want
+    log(f"phase 7d: flash_attention at head dims 136-192 == plain version "
+        f"on {n} cases (f32 rel err <= {KERNEL_TOL['float32']}, bf16 <= "
+        f"{KERNEL_TOL['bfloat16']}); max_abs_err {worst}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def mla_decode_timing(torch, MLA, blk, caches, slot, run) -> dict:
+    """CUDA-event time of one MLA layer's absorbed decode (the cut's
+    layer ``slot`` over its latent cache at the last row, B sequences)
+    beside its bound: its weights and its cache rows read once, and the
+    products it needs at the bf16 peak."""
+    cfg = blk.cfg
+    b = run["prompts"].shape[0]
+    last = run["prompts"].shape[1] + run["tokens"].shape[1] - 1
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((b, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    pos = torch.full((b,), last, dtype=torch.int32, device="cuda")
+    cache = {name: caches[name][slot] for name in ("c_kv", "k_rope")}
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: MLA.mla_decode(blk.mixer, x, cache, pos,
+                                                   cfg), iters=20)
+        prof = profile_region(torch, lambda: MLA.mla_decode(
+            blk.mixer, x, cache, pos, cfg))
+    weights = sum(t.numel() for t in blk.mixer.values())
+    rows = b * (last + 1)
+    lat = cfg.kv_lora + cfg.rope_head_dim
+    bytes_moved = (2 * weights + 2 * rows * lat + 2 * 2 * x.numel())
+    # every weight multiplies each token once (W_uk and W_uv in the
+    # absorbed products too); the logits and the context read every row
+    flops = 2 * b * weights + 2 * 2 * cfg.n_heads * rows * lat
+    return dict(bound_entry(ms, None, None, bytes_moved, flops), prof=prof)
+
+
+def log_moe_layer_timing(torch, MOE, ffn, cfg, phase: str,
+                         sizes: tuple) -> None:
+    for n in sizes:
+        t = moe_layer_timing(torch, MOE, ffn, n)
+        pr = t["prof"]
+        log(f"phase {phase}: one {cfg.name} MoE layer at T = {n} "
+            f"(capacity {t['capacity']}): {t['ms']:.6f} ms "
+            f"({t['bound_ms'] / t['ms']:.4f} of its bound), bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {t['bytes']} bytes, "
+            f"{t['flops']} flop); profiled call: {pr['device_events']} "
+            f"device events, busy {pr['busy_us']:.1f} us of "
+            f"{pr['wall_us']:.1f} us wall")
+
+
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2668,6 +2835,8 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
+    from repro_torch.configs.deepseek_v2_236b import (
+        ONE_CHIP as DEEPSEEK_ONE_CHIP)
     from repro_torch.configs.jamba15_large_398b import ONE_CHIP
     from repro_torch.configs.llama4_scout_17b_a16e import (
         ONE_CHIP as LLAMA4_ONE_CHIP)
@@ -2684,6 +2853,7 @@ def main() -> int:
     from repro_torch.kernels.zns_alloc import ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import model as MDL
+    from repro_torch.models import mla as MLA
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TT
 
@@ -2947,37 +3117,73 @@ def main() -> int:
 
     # 8c. the MoE path: the one-card llama4-scout cut through both
     # attention kernels
-    run = phase_llama4(torch, serve, TT, MOE, LLAMA4_ONE_CHIP, kernels,
-                       {"zns_alloc": ops, "page_clock": pc_ops})
+    others = {"zns_alloc": ops, "page_clock": pc_ops}
+    run = phase_moe_serve(torch, serve, TT, MOE, LLAMA4_ONE_CHIP, kernels,
+                          others, phase="8c", want_params=LLAMA4_PARAMS,
+                          batch=LLAMA4_BATCH, prompt=LLAMA4_PROMPT,
+                          tokens=LLAMA4_TOKENS)
 
     # 9c. the plain attention under replayed routes, against it; then
     # the plain path routing on its own
-    phase_llama4_ref(torch, serve, TT, run)
+    phase_moe_serve_ref(torch, serve, TT, run, "9c", "8c")
 
     # 10c. timing: one MoE layer at prefill and decode size, the
     # attention kernels at G 5, a second serve run, a profiled step
-    ffn = moe_layers(TT, run["model"])[0]
-    for n in (LLAMA4_BATCH * LLAMA4_PROMPT, LLAMA4_BATCH):
-        t = moe_layer_timing(torch, MOE, ffn, n)
-        pr = t["prof"]
-        log(f"phase 10c: one {LLAMA4_ONE_CHIP.name} MoE layer at T = {n} "
-            f"(capacity {t['capacity']}): {t['ms']:.6f} ms "
-            f"({t['bound_ms'] / t['ms']:.4f} of its bound), bound "
-            f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {t['bytes']} bytes, "
-            f"{t['flops']} flop); profiled call: {pr['device_events']} "
-            f"device events, busy {pr['busy_us']:.1f} us of "
-            f"{pr['wall_us']:.1f} us wall")
-    del ffn
+    log_moe_layer_timing(torch, MOE, moe_layers(TT, run["model"])[0],
+                         LLAMA4_ONE_CHIP, "10c",
+                         (LLAMA4_BATCH * LLAMA4_PROMPT, LLAMA4_BATCH))
     llama4_t = log_serve_timing(
         torch, F, serve, MDL, run, "10c", fops, fref, dops, dref, usage,
         b=LLAMA4_BATCH, s=LLAMA4_PROMPT, hq=LLAMA4_ONE_CHIP.n_heads,
         hkv=LLAMA4_ONE_CHIP.n_kv_heads, d=128,
         n_caches=LLAMA4_ONE_CHIP.n_layers,
         seq=LLAMA4_PROMPT + LLAMA4_TOKENS)
+    llama4 = (f"{LLAMA4_ONE_CHIP.name} one-card cut", run["counts"],
+              llama4_t)
+    del run                         # the llama4 cut's weights and caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7d. the flash kernel above head dim 128 vs its plain version
+    mla_err = phase_flash_mla(torch, np, fops, fref)
+
+    # 8d. multi-head latent attention: the one-card deepseek-v2 cut, its
+    # prefill through the flash kernel at head dim 192
+    run = phase_moe_serve(torch, serve, TT, MOE, DEEPSEEK_ONE_CHIP, kernels,
+                          others, phase="8d", want_params=DEEPSEEK_PARAMS,
+                          batch=DEEPSEEK_BATCH, prompt=DEEPSEEK_PROMPT,
+                          tokens=DEEPSEEK_TOKENS)
+
+    # 9d. the plain attention under replayed routes, against it; then
+    # the plain path routing on its own
+    phase_moe_serve_ref(torch, serve, TT, run, "9d", "8d")
+
+    # 10d. timing: one MLA decode layer, one MoE layer at prefill and
+    # decode size, flash at D 192, a second serve run, a profiled step
+    cfg = DEEPSEEK_ONE_CHIP
+    t = mla_decode_timing(torch, MLA, run["model"].blocks[1], run["caches"],
+                          TT.cache_slots(cfg)[1][1], run)
+    pr = t["prof"]
+    log(f"phase 10d: one {cfg.name} MLA decode layer (absorbed, B "
+        f"{DEEPSEEK_BATCH}, {DEEPSEEK_PROMPT + DEEPSEEK_TOKENS} cache "
+        f"rows): {t['ms']:.6f} ms ({t['bound_ms'] / t['ms']:.4f} of its "
+        f"bound), bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+        f"{t['bytes']} bytes, {t['flops']} flop); profiled call: "
+        f"{pr['device_events']} device events, busy {pr['busy_us']:.1f} us "
+        f"of {pr['wall_us']:.1f} us wall")
+    log_moe_layer_timing(torch, MOE, moe_layers(TT, run["model"])[0], cfg,
+                         "10d", (DEEPSEEK_BATCH * DEEPSEEK_PROMPT,
+                                 DEEPSEEK_BATCH))
+    deepseek_t = log_serve_timing(
+        torch, F, serve, MDL, run, "10d", fops, fref, dops, dref, usage,
+        b=DEEPSEEK_BATCH, s=DEEPSEEK_PROMPT, hq=cfg.n_heads,
+        hkv=cfg.n_heads, d=cfg.nope_head_dim + cfg.rope_head_dim,
+        n_caches=0, seq=0, v_dim=cfg.v_head_dim)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]
     errs = dict(attn_err, ssm_scan=ssm_err)
+    mla_errs = dict(errs, flash_attention=mla_err)
     replaces = {
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:36",
@@ -2986,8 +3192,9 @@ def main() -> int:
         "ssm_scan": "src/repro/kernels/ssm_scan/ssm_scan.py:36"}
     # one entry per kernel and serving path, each with that path's
     # launches and the times at that path's shapes
-    paths = [granite, jamba, (f"{LLAMA4_ONE_CHIP.name} one-card cut",
-                              run["counts"], llama4_t)]
+    paths = [granite + (errs,), jamba + (errs,), llama4 + (errs,),
+             (f"{DEEPSEEK_ONE_CHIP.name} one-card cut", run["counts"],
+              deepseek_t, mla_errs)]
     serve_entries = [{
         "name": name,
         "path": path,
@@ -2995,13 +3202,13 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
         "replaces": replaces[name],
         "launches": counts[name],
-        "max_abs_err": errs[name],
+        "max_abs_err": path_errs[name],
         "ms": timed[name]["ms"],
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],
         "bound_by": timed[name]["bound_by"],
         "library_ms": timed[name]["library_ms"],
-    } for path, counts, timed in paths for name in timed]
+    } for path, counts, timed, path_errs in paths for name in timed]
     log(gpu_name_and_limit())
     zns = "src/repro_torch/kernels/zns_alloc/csrc/zns_alloc.cu"
     zns_entries = [{

@@ -14,7 +14,9 @@ must be contiguous), so a ``(B, S, H, D)`` projection viewed as
 The source holds two kernels, chosen here by dtype: bf16 (the serving
 dtype) runs on the tensor cores (wgmma, with cp.async copies of
 16-byte chunks, so its pointers and batch/head/row strides must be
-multiples of 16 bytes -- a ``ValueError`` names what is not); f32 runs
+multiples of 16 bytes -- a ``ValueError`` names what is not; the source
+picks one of two tile plans by head_dim, D <= 128 or 128 < D <=
+:data:`MAX_HEAD_DIM`, MLA's nope + rope); f32 runs
 the SIMT kernel on the f32 FMA pipes, because tensor-core operands (bf16
 or tf32) cannot meet the f32 tolerance of 5e-5.
 
@@ -33,7 +35,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

@@ -48,20 +48,28 @@ def init_kv_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def write_rows(c: torch.Tensor, new: torch.Tensor,
+               pos: torch.Tensor) -> None:
+    """Write ``new[b]`` (``c``'s trailing shape) at row ``pos[b]`` of
+    sequence ``b`` of cache ``c`` (``(B, max_seq, ...)``), in place.  A
+    ``pos`` outside ``[0, max_seq)`` is dropped, like the reference's
+    ``.at[rows, pos].set(mode="drop")`` -- without a host sync: the row at
+    the clamped index is rewritten with its old value."""
+    max_seq = c.shape[1]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    keep = ((pos >= 0) & (pos < max_seq)).view(-1, *[1] * (new.dim() - 1))
+    idx = pos.clamp(0, max_seq - 1).long()
+    c[rows, idx] = torch.where(keep, new.to(c.dtype), c[rows, idx])
+
+
 def cache_append(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
                  v_new: torch.Tensor, pos: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
     """Write row ``pos[b]`` of sequence ``b`` (k_new/v_new ``(B, Hkv,
-    D)``) in place.  A ``pos`` outside ``[0, max_seq)`` is dropped, like
-    the reference's ``.at[rows, pos].set(mode="drop")`` -- without a host
-    sync: the row at the clamped index is rewritten with its old value."""
-    max_seq = cache["k"].shape[1]
-    rows = torch.arange(pos.shape[0], device=pos.device)
-    keep = ((pos >= 0) & (pos < max_seq))[:, None, None]
-    idx = pos.clamp(0, max_seq - 1).long()
-    for name, new in (("k", k_new), ("v", v_new)):
-        c = cache[name]
-        c[rows, idx] = torch.where(keep, new.to(c.dtype), c[rows, idx])
+    D)``) in place; out-of-range positions are dropped
+    (:func:`write_rows`)."""
+    write_rows(cache["k"], k_new, pos)
+    write_rows(cache["v"], v_new, pos)
     return cache
 
 

@@ -113,7 +113,9 @@ def route(p, x: torch.Tensor, dims: MoEDims,
     """Router probabilities, the top-k choice and its weights, and the
     aux loss.  ``routes`` (T, k), a check hook and not a feature, replays
     a recorded choice: the weights are then this call's probabilities at
-    those indices, as ``top_k`` would give them."""
+    those indices, as ``top_k`` would give them -- taken before the
+    device-limited group mask, since the groups are part of the recorded
+    choice (this call's mask could zero a replayed expert's weight)."""
     t = x.shape[0]
     e, k = dims.n_experts, dims.top_k
     # the router must see f32 products: TF32 keeps 10 mantissa bits, so
@@ -123,6 +125,7 @@ def route(p, x: torch.Tensor, dims: MoEDims,
             "moe: torch.backends.cuda.matmul.allow_tf32 is on; the router "
             "needs f32 products (TF32 flips near-tied expert choices)")
     probs = torch.softmax(x.float() @ p["router"], dim=-1)         # (T, E)
+    unmasked = probs
     margin = torch.full((t,), math.inf, device=x.device)
     if dims.route_groups > 1 and 0 < dims.route_limit < dims.route_groups:
         g = dims.route_groups
@@ -137,7 +140,7 @@ def route(p, x: torch.Tensor, dims: MoEDims,
     margin = torch.minimum(margin, gap)
     if routes is not None:
         gate_idx = routes
-        gate_vals = probs.gather(1, routes)
+        gate_vals = unmasked.gather(1, routes)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(dim=-1, keepdim=True), 1e-9)
     # Switch aux loss: E * sum_e (fraction_e * mean_prob_e)
@@ -163,17 +166,25 @@ def _fold_f32(first: float, step: float, n: int) -> float:
     return float(np.cumsum(seq, dtype=np.float32)[-1])
 
 
+#: f32(1/127): compiled, the reference's ``max / 127.0`` is a multiply by
+#: it (XLA rewrites a division by a constant)
+_INV_127 = float(torch.tensor(1 / 127.0, dtype=torch.float32))
+
+
 def _dispatch_int8(x, slot, keep, e, c):
     """The int8 dispatch buffer ``(E*C, d)``: per-token symmetric scale,
     payload rounded half to even and clipped to +-127, dequantised as
-    ``bf16(q) * bf16(scale)``.  Slot ``(0, C-1)``'s scale also sums the
+    ``bf16(q) * bf16(scale)`` in x's dtype -- as the reference's compiled
+    program computes it, which in f32 keeps the product exact (XLA on the
+    CPU drops the bf16 rounding between the product and its f32 convert;
+    the eager reference rounds it).  Slot ``(0, C-1)``'s scale also sums the
     dropped pairs' scales (their payload is zeroed first, so each is
     ``1e-6 / 127``), in the reference's update order: the pair kept
     there, if any, then the dropped ones."""
     t, d = x.shape
     xf = x.float()
     scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True),
-                            1e-6) / 127.0                          # (T, 1)
+                            1e-6) * _INV_127                       # (T, 1)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     qbuf = torch.zeros((e * c + 1, d), dtype=torch.int8, device=x.device)
     sbuf = torch.zeros((e * c + 1, 1), dtype=torch.float32,
@@ -184,10 +195,10 @@ def _dispatch_int8(x, slot, keep, e, c):
     n_drop = int((~keep).sum())
     if n_drop:
         dropped = torch.clamp_min(torch.zeros((), device=x.device),
-                                  1e-6) / 127.0
+                                  1e-6) * _INV_127
         sbuf[c - 1] = _fold_f32(float(sbuf[c - 1]), float(dropped), n_drop)
-    return (qbuf[:e * c].to(torch.bfloat16)
-            * sbuf[:e * c].to(torch.bfloat16)).to(x.dtype)
+    return (qbuf[:e * c].to(torch.bfloat16).to(x.dtype)
+            * sbuf[:e * c].to(torch.bfloat16).to(x.dtype))
 
 
 def _promoted(a: torch.Tensor, b: torch.Tensor):

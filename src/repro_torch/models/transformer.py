@@ -12,23 +12,29 @@ repetition ``r``; with ``first_layer_dense`` layer 0 is the reference's
 the pattern.  :func:`params_from_numpy` / :func:`params_to_numpy` map
 between the two.
 
-Supported: ``"attn"`` (self-attention) and ``"mamba"`` blocks, each with
-a dense FFN (SwiGLU or GELU, RMSNorm or LayerNorm), an MoE FFN
-(:class:`MoEFFN`, ``models/moe.py``) on the layers ``cfg.is_moe_layer``
-picks, or none; and the dense first layer.  Each kind's mixer init,
-cache, prefill and decode, and its names in the reference's trees, are
-one entry of :data:`KINDS`.  MLA (item 11d), mLSTM/sLSTM blocks (11b),
-and cross-attention and the encoder (11c) raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+Supported: ``"attn"`` (self-attention, or multi-head latent attention
+when ``cfg.mla``) and ``"mamba"`` blocks, each with a dense FFN (SwiGLU
+or GELU, RMSNorm or LayerNorm), an MoE FFN (:class:`MoEFFN`,
+``models/moe.py``) on the layers ``cfg.is_moe_layer`` picks, or none;
+and the dense first layer.  Each kind's mixer init, cache, prefill and
+decode, and its names in the reference's trees, are one entry of
+:data:`KINDS`; :func:`layer_plan` gives an ``"attn"`` layer of an MLA
+config the kind ``"mla"`` (the dense first layer too, as in the
+reference), while :func:`slot_kinds` keeps the reference's pattern
+names.  mLSTM/sLSTM blocks (item 11b), and cross-attention and the
+encoder (11c) raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 
-Caches hold the two kinds of state side by side, each stacked over the
+Caches hold the kinds' state side by side, each stacked over the
 layers of its kind (:func:`cache_slots` maps a layer to its kind and its
 index there): ``{"k", "v"}`` of shape ``(n_attn, B, max_seq, Hkv, D)`` in
-bf16 for the attention layers (the dense first layer's at index 0), and
+bf16 for the attention layers (the dense first layer's at index 0), the
+latent ``{"c_kv", "k_rope"}`` of shapes ``(n_mla, B, max_seq, kv_lora)``
+and ``(n_mla, B, max_seq, rope)`` in bf16 for the MLA layers, and
 ``{"conv", "ssm"}`` of shapes ``(n_mamba, B, K-1, d_inner)`` bf16 and
 ``(n_mamba, B, d_inner, N)`` f32 for the Mamba layers; a dense model has
-only ``k`` and ``v``, one per layer.  Prefill writes the KV cache in
-place and, like the reference, leaves the Mamba state as it was
+only ``k`` and ``v``, one per layer.  Prefill writes the KV and latent
+caches in place and, like the reference, leaves the Mamba state as it was
 (``repro.models.transformer`` skips the terminal state: decode starts
 every Mamba layer from its cached state, zero after :func:`init_caches`).
 Decode writes both in place.
@@ -47,6 +53,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
 _QUEUE = "ROADMAP Queue 1 item 11"
@@ -56,10 +63,6 @@ _QUEUE = "ROADMAP Queue 1 item 11"
 # what the port serves
 # --------------------------------------------------------------------- #
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention (models/mla.py) is "
-            f"not ported yet ({_QUEUE}d)")
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder and cross-attention (VLM/audio) are "
@@ -100,11 +103,18 @@ def n_scan_reps(cfg: ArchConfig) -> int:
     return n // len(cfg.pattern)
 
 
+def block_kind(cfg: ArchConfig, kind: str) -> str:
+    """The :data:`KINDS` entry of a reference pattern kind: ``"attn"``
+    runs MLA under ``cfg.mla``."""
+    return "mla" if cfg.mla and kind == "attn" else kind
+
+
 def layer_plan(cfg: ArchConfig) -> List[Tuple[str, bool]]:
     """(kind, is_moe) of every layer in order: the dense first layer,
     then the pattern's slots, repetition by repetition."""
     first = [("attn", False)] if cfg.first_layer_dense else []
-    return first + slot_kinds(cfg) * n_scan_reps(cfg)
+    return [(block_kind(cfg, kind), moe)
+            for kind, moe in first + slot_kinds(cfg) * n_scan_reps(cfg)]
 
 
 def moe_dims(cfg: ArchConfig) -> MOE.MoEDims:
@@ -306,6 +316,24 @@ def _mamba_decode(blk: Block, h, cache, pos, attn_impl):
     return M.mamba_decode(blk.mixer, h, cache, state=blk.cfg.ssm_state)[0]
 
 
+def _mla_init(generator, cfg: ArchConfig, device, dtype):
+    return MLA.mla_init(generator, cfg, device=device, dtype=dtype)
+
+
+def _mla_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
+    return MLA.init_mla_cache(batch, max_seq, cfg, device=device)
+
+
+def _mla_prefill(blk: Block, h, cache, attn_impl, ssm_impl):
+    return MLA.mla_prefill(blk.mixer, h, cache, blk.cfg, impl=attn_impl)[0]
+
+
+def _mla_decode(blk: Block, h, cache, pos, attn_impl):
+    # the absorbed decode is plain products in the reference too: no
+    # attention kernel, whatever attn_impl
+    return MLA.mla_decode(blk.mixer, h, cache, pos, blk.cfg)[0]
+
+
 @dataclass(frozen=True)
 class Kind:
     """Everything the stack knows of one block kind."""
@@ -323,6 +351,8 @@ KINDS: Dict[str, Kind] = {
                  _attn_prefill, _attn_decode),
     "mamba": Kind("mamba", "mamba", ("conv", "ssm"), _mamba_init,
                   _mamba_cache, _mamba_prefill, _mamba_decode),
+    "mla": Kind("self", "kv", ("c_kv", "k_rope"), _mla_init, _mla_cache,
+                _mla_prefill, _mla_decode),
 }
 
 
@@ -522,11 +552,12 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda") -> Transformer:
     params)``: per-slot leaves stacked over repetitions, and the dense
     first layer under ``"first"``) as the port's :class:`Transformer`,
     bit for bit."""
-    blocks = ([_block_from(cfg, "attn", False, tree["first"], device)]
+    blocks = ([_block_from(cfg, block_kind(cfg, "attn"), False,
+                           tree["first"], device)]
               if cfg.first_layer_dense else [])
     for r in range(n_scan_reps(cfg)):
         for j, (kind, moe) in enumerate(slot_kinds(cfg)):
-            blocks.append(_block_from(cfg, kind, moe,
+            blocks.append(_block_from(cfg, block_kind(cfg, kind), moe,
                                       _rep(tree["slots"][j], r), device))
     return Transformer(cfg, _from_numpy(tree["embed"], device), blocks,
                        _norm_from(cfg, tree["final_norm"], device))
@@ -568,14 +599,17 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
                     bf16_dtype=None):
     """The port's caches in the reference's layout: ``{"slots": [...]}``
     with ``{"kv": {"k", "v"}}`` (leaves ``(reps, B, S, Hkv, D)``) for an
-    attention slot and ``{"mamba": {"conv", "ssm"}}`` (leaves ``(reps, B,
-    K-1, d_inner)`` and ``(reps, B, d_inner, N)``) for a Mamba slot, and
-    the dense first layer's ``{"kv": {"k", "v"}}`` under ``"first"``."""
+    attention slot, ``{"kv": {"c_kv", "k_rope"}}`` (leaves ``(reps, B, S,
+    kv_lora)`` and ``(reps, B, S, rope)``) for an MLA one and
+    ``{"mamba": {"conv", "ssm"}}`` (leaves ``(reps, B, K-1, d_inner)`` and
+    ``(reps, B, d_inner, N)``) for a Mamba slot, and the dense first
+    layer's ``{"kv": ...}`` under ``"first"``."""
     reps = n_scan_reps(cfg)
     where = cache_slots(cfg)
     n_prefix = 1 if cfg.first_layer_dense else 0
 
     def layer(kind, idx):
+        kind = block_kind(cfg, kind)
         return {KINDS[kind].cache_key: {
             name: _to_numpy(caches[name][idx], bf16_dtype)
             for name in KINDS[kind].cache_names}}

@@ -141,8 +141,10 @@ def test_flash_rejections():
         fops.attention(q, k[:, :, :4], k[:, :, :4], causal=True)
     fops.attention(q, k[:, :, :4], k[:, :, :4], causal=False)  # fine
     with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros((1, 2, 8, 160))
+        big = torch.zeros((1, 2, 8, 200))
         fops.attention(big, big, big)
+    mla = torch.zeros((1, 2, 8, 192))           # MLA's nope 128 + rope 64
+    assert fops.attention(mla, mla, mla).shape == mla.shape
     with pytest.raises(ValueError, match="multiple"):
         fops.attention(q, torch.zeros((1, 3, 8, 16)),
                        torch.zeros((1, 3, 8, 16)))
@@ -323,3 +325,38 @@ def test_cuda_kernels_match_their_plain_versions():
             want = dref.decode_attention_ref(q, k, v, lengths)
             torch.cuda.synchronize()
             assert rel_err(to_np(got), to_np(want)) < tol(dt)
+
+
+#: head dims above 128 (the bf16 kernel's 64-row K/V tile plan): the
+#: one-card deepseek-v2 cut's prefill (B 8, 128 heads, S 512, D 192), S
+#: one before, on and one after the 64- and 128-row tiles, D 136 and 184,
+#: and ragged shapes with G > 1
+FLASH_MLA = [(8, 128, 128, 512, 512, 192, True),
+             (2, 4, 2, 63, 63, 192, True), (2, 4, 2, 65, 65, 192, True),
+             (2, 4, 2, 127, 127, 192, True), (2, 4, 2, 129, 129, 192, True),
+             (1, 4, 4, 100, 300, 136, True), (2, 8, 2, 200, 200, 184, False),
+             (3, 8, 1, 77, 150, 192, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s,sk,d,causal", FLASH_MLA)
+def test_cuda_flash_kernel_above_head_dim_128(b, hq, hkv, s, sk, d, causal,
+                                              dt):
+    """Run on a card only: the flash kernel at MLA's head dims against its
+    plain version on the same CUDA tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernel has no CPU "
+                    "mode (the plain version at D 192 is held to the "
+                    "reference in tests/test_torch_mla.py)")
+    rng = np.random.default_rng(s + d)
+    td = DTYPES[dt][1]
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(
+        device="cuda", dtype=td) for shape in (
+            (b, hq, s, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    before = fops.launches
+    got = fops.attention(q, k, v, causal=causal)
+    assert fops.launches == before + 1
+    want = fref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert rel_err(to_np(got), to_np(want)) < tol(dt)

@@ -3,12 +3,15 @@ the CPU: ``moe_apply`` at the reduced jamba, llama4-scout and deepseek-v2
 ``MoEDims`` and at a top-6, 16-expert, device-limited, int8 case that
 drops; the int8 scale quirk at slot ``(0, C-1)``; ties going to the
 lower index; whole prefill + decode runs of the reduced llama4-scout, the
-reduced jamba with its experts and a llama4-scout with a dense first
-layer; parameter round trips and parameter counts.
+reduced jamba with its experts, a llama4-scout with a dense first layer
+and the reduced deepseek-v2 (MLA, int8 dispatch); parameter round trips
+and parameter counts.
 
 The reference's routes, kept mask and positions are read from the calls
 it makes (``jax.lax.top_k``, ``jnp.argsort``, ``jnp.bincount``, wrapped
-for the call) and must EQUAL the port's.  Outputs and the aux loss are
+for an eager call) and must EQUAL the port's; its output and aux loss
+come from the compiled call, as the served reference's do.  Outputs and
+the aux loss are
 held at the tolerances of ``tests/test_torch_serve.py`` (``rel_err`` =
 max abs difference over max abs reference): 1e-3 in f32 (summation
 order), 3e-2 in bf16 (bf16 rounds after every op in both packages, not
@@ -94,8 +97,12 @@ def both(tree, dtype: str):
 def reference_call(monkeypatch, p, x, dims):
     """The reference's ``moe_apply`` run eagerly, with its routes (the
     last ``top_k``), its stable sort by expert and its counts read off
-    the calls it makes; returns (out, aux, gate_idx, keep, pos), keep and
-    pos token-major (T, k)."""
+    the calls it makes, and its output and aux loss from the compiled
+    call (``jax.jit``, as the reference serves it: compiled, XLA on the
+    CPU multiplies the int8 scale by 1/127 and keeps the dequantising
+    bf16 x bf16 product exact in f32 when the activations are f32,
+    where the eager call divides and rounds the product to bf16); returns
+    (out, aux, gate_idx, keep, pos), keep and pos token-major (T, k)."""
     seen = {"top_k": [], "argsort": [], "bincount": []}
     for mod, name in ((jax.lax, "top_k"), (jnp, "argsort"),
                       (jnp, "bincount")):
@@ -106,8 +113,9 @@ def reference_call(monkeypatch, p, x, dims):
             seen[_name].append(out)
             return out
         monkeypatch.setattr(mod, name, wrapped)
-    out, aux = JMOE.moe_apply(p, x, dims)
+    JMOE.moe_apply(p, x, dims)
     monkeypatch.undo()
+    out, aux = jax.jit(JMOE.moe_apply, static_argnums=2)(p, x, dims)
     gate_idx = np.asarray(seen["top_k"][-1][1])
     t, k = gate_idx.shape
     order = np.asarray(seen["argsort"][-1])
@@ -314,6 +322,32 @@ def test_routes_replay_keeps_the_recorded_experts():
     assert torch.allclose(r3.gate_vals, r.gate_vals.flip(1))
 
 
+def test_routes_replay_weights_ignore_this_calls_group_mask():
+    """Under device-limited routing the recorded groups are part of the
+    replayed choice: a replayed expert outside this call's groups keeps
+    its probability as its weight (this call's mask would zero it)."""
+    jdims = LAYER_CASES[3][1]                 # 16 experts, 4 groups, limit 2
+    rng = np.random.default_rng(10)
+    tp = both(moe_params(rng, jdims, "f32"), "f32")[1]
+    x = torch.from_numpy(rng.standard_normal((16, 64)).astype(np.float32))
+    dims = torch_dims(jdims)
+    _, r = TMOE.moe_forward(tp, x, dims)
+    probs = torch.softmax(x @ tp["router"], dim=-1)
+    # every token's top-6 lies in its 2 groups of 4: move one choice to an
+    # expert of a group it did not pick
+    group = r.gate_idx // 4
+    other = torch.tensor([next(e for e in range(16)
+                               if e // 4 not in set(g.tolist()))
+                          for g in group])
+    routes = r.gate_idx.clone()
+    routes[:, -1] = other
+    _, r2 = TMOE.moe_forward(tp, x, dims, routes=routes)
+    want = probs.gather(1, routes)
+    assert torch.equal(r2.gate_idx, routes)
+    assert torch.allclose(r2.gate_vals, want / want.sum(-1, keepdim=True))
+    assert bool((r2.gate_vals[:, -1] > 0).all())
+
+
 # --------------------------------------------------------------------- #
 # configs and parameter counts
 # --------------------------------------------------------------------- #
@@ -349,7 +383,7 @@ def _variant(name: str, jax_side: bool):
     return get(name).reduced()
 
 
-SERVE_CASES = [LLAMA4, JAMBA, "llama4-first-dense"]
+SERVE_CASES = [LLAMA4, JAMBA, "llama4-first-dense", DEEPSEEK]
 
 
 def _reference_run(jcfg, params, prompts, decode_impl):
@@ -380,7 +414,7 @@ def test_moe_params_round_trip_bit_for_bit(name):
     assert moe == [m for _, m in TT.layer_plan(tcfg)]
     assert moe == [jcfg.is_moe_layer(i) for i in range(jcfg.n_layers)]
     if tcfg.first_layer_dense:
-        assert model.blocks[0].ffn["w_gate"].shape == (64, 192)
+        assert model.blocks[0].ffn["w_gate"].shape == (64, tcfg.dense_d_ff)
     back = TT.params_to_numpy(model, bf16_dtype=tree["embed"].dtype)
     flat_a, tdef_a = jax.tree.flatten(tree)
     flat_b, tdef_b = jax.tree.flatten(back)

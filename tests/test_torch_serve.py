@@ -102,10 +102,10 @@ def test_param_count_on_meta_equals_the_reference(name):
 
 
 def _still_unported(name: str) -> bool:
-    """MLA (item 11d), mLSTM/sLSTM (11b), cross-attention and the encoder
-    (11c): what the port does not serve yet."""
+    """mLSTM/sLSTM (item 11b), cross-attention and the encoder (11c): what
+    the port does not serve yet."""
     cfg = get_arch(name)
-    return bool(cfg.mla or cfg.encoder_layers
+    return bool(cfg.encoder_layers
                 or {"mlstm", "slstm", "cross"} & set(cfg.pattern))
 
 
