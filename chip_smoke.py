@@ -211,7 +211,45 @@ then, with the llama4 cut freed, multi-head latent attention:
      weights and latent rows read once), one MoE layer at T = 4096 and
      T = 8 beside its bound, flash at D 192 beside its device time per
      launch, its plain version and SDPA, a second timed serve run, and
-     one profiled decode step.
+     one profiled decode step;
+
+then, with the deepseek-v2 cut freed, cross-attention and the encoder:
+
+7e. both attention kernels against their plain versions at the two
+    cross-attention models' shapes, f32 and bf16: flash self-attention
+    (causal) and cross-attention (not causal, S 512 over the memory's Sk
+    1601, also as the strided ``(B, M, Hkv, D)`` views the model passes)
+    of llama-3.2-vision-11b, the encoder (S = Sk = 1024, D 64, G 1),
+    causal decoder and cross-attention (Sk 1024) of seamless-m4t-medium;
+    Sk one before, on and one after 1601's 64- and 128-row tile
+    boundaries (1535-1537, 1599-1603); not causal with S > Sk; decode
+    attention over memories of 1601 and 1024 rows with every length
+    equal to M, at G 1 and G 4, beside the self-attention decodes; and
+    self and cross decodes interleaved in one stream (they share the
+    kernel's scratch, grown to the larger plan);
+8e. ``serve.build`` and ``serve.generate`` for llama-3.2-vision-11b as
+    published (40 layers, every 5th a cross layer; weights from seed 0 on
+    the card): 8 prompts of 512 tokens and a memory of (8, 1601, 4096)
+    bf16 from the reference's recipe (its ``memory_len``), 31 greedy
+    decode steps, every launch count zeroed just before and read just
+    after -- ``flash_attention`` 48 in prefill (40 causal + 8 cross),
+    ``decode_attention`` 48 x 31 in decode, nothing crossed, no
+    ``ssm_scan``, ``zns_alloc`` or ``page_clock`` launch; the peak device
+    memory;
+9e. the same run through the plain attention, teacher-forced with 8e's
+    tokens and memory: every step's logits, the final KV caches and the
+    memory K/V held to 8e's;
+10e. CUDA-event times at the cross-attention shapes -- flash (S 512 over
+     Sk 1601, not causal) and decode attention (every length 1601, over
+     the 8 cross layers' memories) beside their device time per launch,
+     plain versions, SDPA and bounds -- a second timed serve run, and
+     one profiled decode step;
+8f-10f. the same for seamless-m4t-medium as published (12 encoder and 12
+     decoder layers): 8 requests of 1024 encoder frames (its
+     ``memory_len`` at the 4k cell) and decoder prompts of 512 tokens, 31
+     decode steps; ``flash_attention`` 36 in prefill (12 encoder + 12
+     causal + 12 cross), ``decode_attention`` 24 x 31; prefill split into
+     its encoder and decoder spans; the encoder's flash shape timed too.
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
@@ -219,7 +257,8 @@ per kernel and path (``path``: ``paper_report``, ``kv_zn540`` and
 ``fleet_sweep_zn540`` for the two fused ``zns_alloc`` selections, the
 Pallas contract and phase 14's legacy ALLOCs for its row kernel,
 granite-3-8b, the Jamba cut, the llama4-scout cut and the deepseek-v2
-cut for the serving kernels, phase 14 for ``page_clock``), each with that
+cut, llama-3.2-vision-11b and seamless-m4t-medium for the serving
+kernels, phase 14 for ``page_clock``), each with that
 path's launches and the times at its shapes -- and ``{"ok": true,
 "device": {...}}``.
 """
@@ -288,6 +327,13 @@ DEEPSEEK_PARAMS = 36_611_322_880
 MOE_REPEAT_TOKENS = (4096, 8)
 MOE_CPU_TOKENS = 512
 ROUTE_FLIP_MARGIN = 1e-5
+#: the cross-attention slice: both models as published, 8 prompts of 512
+#: tokens, 32 tokens out, the memory at the reference's memory_len (the
+#: 4k cell for the audio model's frames)
+CROSS_BATCH, CROSS_PROMPT, CROSS_TOKENS = 8, 512, 32
+CROSS_CELL = "train_4k"
+VISION_PARAMS = 9_585_397_760
+SEAMLESS_PARAMS = 614_854_656
 
 
 def fail(msg: str) -> None:
@@ -2098,10 +2144,11 @@ def check_serve(torch, run, counts, kernels, n_params, want_params) -> None:
     range."""
     cfg = run["cfg"]
     kinds = cfg.layer_kinds()
-    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    n_mamba, n_cross = kinds.count("mamba"), kinds.count("cross")
+    n_attn = kinds.count("attn") + 2 * n_cross  # a cross layer attends twice
     steps = run["tokens"].shape[1] - 1
-    want = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
-                        "ssm_scan": n_mamba},
+    want = {"prefill": {"flash_attention": n_attn + cfg.encoder_layers,
+                        "decode_attention": 0, "ssm_scan": n_mamba},
             "decode": {"flash_attention": 0,
                        "decode_attention": 0 if cfg.mla else n_attn * steps,
                        "ssm_scan": 0}}
@@ -2186,8 +2233,9 @@ def phase_serve_ref(torch, serve, run, phase: str) -> dict:
     every cache."""
     cfg = run["cfg"]
     ref = serve.generate(run["model"], cfg, run["prompts"],
-                         run["tokens"].shape[1], attn_impl="ref",
-                         ssm_impl="ref", forced=run["tokens"])
+                         run["tokens"].shape[1], memory=run.get("memory"),
+                         attn_impl="ref", ssm_impl="ref",
+                         forced=run["tokens"])
     check(all(v == 0 for phase_counts in ref["launches"].values()
               for v in phase_counts.values()),
           f"the plain path launched a kernel: {ref['launches']}")
@@ -2209,14 +2257,16 @@ def phase_serve_ref(torch, serve, run, phase: str) -> dict:
 
 
 def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
-                     d, n_caches, seq, v_dim=None) -> dict:
+                     d, n_caches, seq, v_dim=None, sk=None,
+                     causal=True) -> dict:
     """CUDA-event times at one serving path's shapes: each kernel, its
     plain version and one SDPA call, with the bound from this run's
-    inputs.  Decode is timed over ``n_caches`` distinct caches of ``seq``
-    rows at full length, so each call reads its cache from device memory
-    as a real step does; a path with no decode kernel (MLA) passes
-    ``n_caches=0``.  ``v_dim``: V's columns past it are zero (MLA's
-    padding)."""
+    inputs.  Flash runs S query rows over ``sk`` key rows (S by default),
+    causal or not (cross-attention over a memory).  Decode is timed over
+    ``n_caches`` distinct caches of ``seq`` rows at full length, so each
+    call reads its cache from device memory as a real step does; a path
+    with no decode kernel (MLA) passes ``n_caches=0``.  ``v_dim``: V's
+    columns past it are zero (MLA's padding)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16 = torch.bfloat16
 
@@ -2225,28 +2275,31 @@ def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
                            dtype=torch.float32).to(bf16)
 
     out = {}
+    sk = sk or s
     # prefill, in the serving layout: (B, S, H, D) viewed as (B, H, S, D)
     q = randn(b, s, hq, d).transpose(1, 2)
-    k = randn(b, s, hkv, d).transpose(1, 2)
-    v = randn(b, s, hkv, d).transpose(1, 2)
+    k = randn(b, sk, hkv, d).transpose(1, 2)
+    v = randn(b, sk, hkv, d).transpose(1, 2)
     if v_dim is not None:
         v[..., v_dim:] = 0
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    iters = max(10, 50 * 512 * 512 // (s * s))
+    iters = max(10, 50 * 512 * 512 // (s * sk))
     before = fops.launches
-    ms = cuda_ms(torch, lambda: fops.attention(q, k, v, causal=True),
+    ms = cuda_ms(torch, lambda: fops.attention(q, k, v, causal=causal),
                  iters=iters)
     flash_dev_us = device_us(torch, lambda: fops.attention(q, k, v,
-                                                           causal=True),
+                                                           causal=causal),
                              "flash_fwd_tc", reps=20)
     fops.launches = before                     # timing launches not counted
     plain_ms = cuda_ms(torch, lambda: fref.attention_ref(q, k, v,
-                                                         causal=True),
+                                                         causal=causal),
                        iters=min(10, iters))
     library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=True, enable_gqa=True))
+        qc, kc, vc, is_causal=causal, enable_gqa=True))
     bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * d * b * hq * s * (s + 1) // 2     # the causal pairs
+    # the (query, key) pairs: the causal triangle, or every pair
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    flops = 4 * d * b * hq * pairs
     plan = ("2 x 64-column swizzle atoms, a 2-stage cp.async ring of "
             "128-row K/V tiles, wgmma m64n128k16 for Q.K^T and P.V"
             if d <= 128 else
@@ -2464,11 +2517,14 @@ def log_serve_timing(torch, F, serve, MDL, run, phase, fops, fref, dops,
             f"{t['bytes']} bytes, {t['flops']} flop); design: "
             f"{t['design']}; bf16 kernel resources {res}")
     timed = serve.generate(run["model"], run["cfg"], run["prompts"],
-                           run["tokens"].shape[1])
+                           run["tokens"].shape[1], memory=run.get("memory"))
     steps = run["tokens"].shape[1] - 1
     b = run["prompts"].shape[0]
+    split = (f" (encoder {timed['encode_s']:.6f} s, decoder "
+             f"{timed['prefill_s'] - timed['encode_s']:.6f} s)"
+             if run["cfg"].encoder_layers else "")
     log(f"phase {phase}: serve {run['cfg'].name}, second run: prefill "
-        f"{timed['prefill_s']:.6f} s = "
+        f"{timed['prefill_s']:.6f} s{split} = "
         f"{run['prompts'].numel() / timed['prefill_s']:.1f} tokens/s; "
         f"decode {timed['decode_s'] / steps * 1e3:.6f} ms/step ({steps} "
         f"steps of {b} sequences); first run prefill "
@@ -2818,6 +2874,158 @@ def log_moe_layer_timing(torch, MOE, ffn, cfg, phase: str,
             f"{pr['wall_us']:.1f} us wall")
 
 
+# --------------------------------------------------------------------- #
+# phases 7e-10f: cross-attention and the encoder
+# --------------------------------------------------------------------- #
+def cross_flash_cases() -> list:
+    """(b, hq, hkv, s, sk, d, causal, views): llama-3.2-vision's
+    self-attention and its cross-attention over the 1601-row memory (also
+    as ``(B, S, H, D)`` / ``(B, M, Hkv, D)`` views, the model's layout),
+    seamless's encoder (S = Sk = 1024, D 64, G 1), causal decoder and
+    cross-attention over 1024 frames; Sk one before, on and one after
+    1601's 64- and 128-row tile boundaries; not causal with S > Sk."""
+    cases = [(8, 32, 8, 512, 512, 128, True, False),
+             (8, 32, 8, 512, 1601, 128, False, False),
+             (8, 32, 8, 512, 1601, 128, False, True),
+             (8, 16, 16, 1024, 1024, 64, False, False),
+             (8, 16, 16, 512, 512, 64, True, False),
+             (8, 16, 16, 512, 1024, 64, False, True)]
+    for sk in (1535, 1536, 1537, 1599, 1600, 1601, 1602, 1603):
+        cases.append((2, 8, 2, 128, sk, 128, False, sk % 2 == 1))
+    cases += [(2, 8, 2, 300, 129, 128, False, False),
+              (1, 4, 4, 1024, 1000, 64, False, True),
+              (2, 4, 1, 130, 65, 64, False, False)]
+    return cases
+
+
+#: (b, hq, hkv, s, d, lengths): cross decode over a memory, every length
+#: M (vision G 4 at 1601, seamless G 1 at 1024, and the other G at each),
+#: and both models' self-attention decodes over 544 rows
+CROSS_DECODE_CASES = [
+    (8, 32, 8, 1601, 128, [1601] * 8), (8, 16, 16, 1024, 64, [1024] * 8),
+    (8, 16, 16, 1601, 64, [1601] * 8), (8, 32, 8, 1024, 128, [1024] * 8),
+    (8, 32, 8, 544, 128, [513, 517, 522, 526, 531, 535, 540, 544]),
+    (8, 16, 16, 544, 64, [513, 517, 522, 526, 531, 535, 540, 544])]
+
+
+def phase_cross_attention(torch, fops, fref, dops, dref) -> dict:
+    """Both attention kernels against their plain versions at the cross
+    models' shapes, f32 and bf16; then self and cross decodes enqueued
+    back to back on one stream (the kernel's scratch is shared) and held
+    after one sync.  Returns the worst max-abs error per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    t0, n = time.perf_counter(), 0
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[str(dtype).split(".")[1]]
+        for b, hq, hkv, s, sk, d, causal, views in cross_flash_cases():
+            if views:
+                q = randn((b, s, hq, d), dtype).transpose(1, 2)
+                k, v = (randn((b, sk, hkv, d), dtype).transpose(1, 2)
+                        for _ in range(2))
+            else:
+                q = randn((b, hq, s, d), dtype)
+                k, v = randn((b, hkv, sk, d), dtype), randn((b, hkv, sk, d),
+                                                            dtype)
+            before = fops.launches
+            got = fops.attention(q, k, v, causal=causal)
+            check(fops.launches == before + 1, "flash launch not counted")
+            want = fref.attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and err <= tol,
+                  f"phase 7e: flash_attention {dtype} "
+                  f"{(b, hq, hkv, s, sk, d)} causal={causal} views={views}: "
+                  f"rel err {err} > {tol}")
+            worst["flash_attention"] = max(worst["flash_attention"], diff)
+            n += 1
+            del q, k, v, got, want
+        calls = []
+        for b, hq, hkv, m, d, lengths in CROSS_DECODE_CASES * 2:
+            q = randn((b, hq, d), dtype)
+            k, v = randn((b, m, hkv, d), dtype), randn((b, m, hkv, d), dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            before = dops.launches
+            calls.append((q, k, v, lens, dops.decode_attention(q, k, v,
+                                                               lens)))
+            check(dops.launches == before + 1, "decode launch not counted")
+        torch.cuda.synchronize()              # every launch enqueued first
+        for q, k, v, lens, got in calls:
+            want = dref.decode_attention_ref(q, k, v, lens)
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and err <= tol,
+                  f"phase 7e: decode_attention {dtype} {tuple(k.shape)} "
+                  f"G {q.shape[1] // k.shape[2]} lengths "
+                  f"{lens.tolist()}: rel err {err} > {tol}")
+            worst["decode_attention"] = max(worst["decode_attention"], diff)
+            n += 1
+        del calls
+    log(f"phase 7e: attention kernels == plain versions at the cross "
+        f"models' shapes on {n} cases (decodes of both kinds enqueued "
+        f"back to back before one sync; f32 rel err <= "
+        f"{KERNEL_TOL['float32']}, bf16 <= {KERNEL_TOL['bfloat16']}); "
+        f"max_abs_err {worst}; {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase_cross_serve(torch, serve, MDL, shapes, cfg, kernels, others, *,
+                      phase: str, want_params: int) -> dict:
+    """A cross-attention model as published through ``serve.build`` and
+    ``serve.generate``: weights from seed 0 on the card, prompts and the
+    memory (its ``memory_len`` at :data:`CROSS_CELL`) drawn as the
+    reference's CLI draws them, every launch count zeroed just before the
+    run and read just after."""
+    torch.cuda.reset_peak_memory_stats()
+    model = serve.build(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in model.parameters())
+    mem_len = MDL.memory_len(cfg, shapes[CROSS_CELL])
+    prompts, memory = serve.make_inputs(cfg, CROSS_BATCH, CROSS_PROMPT, 0,
+                                        mem_len)
+    prompts, memory = (torch.from_numpy(prompts).to("cuda"),
+                       memory.to("cuda"))
+    for mod in list(kernels.values()) + list(others.values()):
+        mod.reset_launches()
+    run = serve.generate(model, cfg, prompts, CROSS_TOKENS, memory=memory)
+    counts = read_counts(kernels)
+    other = {"zns_alloc": sum(others["zns_alloc"].counts.values()),
+             "page_clock": others["page_clock"].launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run = dict(run, cfg=cfg, model=model, prompts=prompts, memory=memory,
+               n_params=n_params, counts=counts)
+    check_serve(torch, run, counts, kernels, n_params, want_params)
+    check(other == {"zns_alloc": 0, "page_clock": 0},
+          f"{cfg.name}: launched {other}")
+    n_cross = cfg.layer_kinds().count("cross")
+    mk = run["caches"]["memory_k"]
+    check(tuple(mk.shape) == (n_cross, CROSS_BATCH, mem_len, cfg.n_kv_heads,
+                              cfg.resolved_head_dim)
+          and mk.dtype == torch.bfloat16
+          and bool(torch.isfinite(mk).all()) and bool(mk.abs().sum() > 0)
+          and run["caches"]["memory_len"].tolist() == [mem_len] * CROSS_BATCH,
+          f"{cfg.name}: memory K/V {tuple(mk.shape)} {mk.dtype}")
+    steps = CROSS_TOKENS - 1
+    split = (f" (encoder {run['encode_s']:.6f} s)" if cfg.encoder_layers
+             else "")
+    log(f"phase {phase}: served {cfg.name} as published ({n_params} "
+        f"parameters, {cfg.n_layers} decoder layers, {n_cross} of them "
+        f"cross, {cfg.encoder_layers} encoder layers) on cuda: "
+        f"{CROSS_BATCH} x {CROSS_PROMPT} prompt, memory "
+        f"{tuple(memory.shape)} {memory.dtype}, {steps} decode steps; "
+        f"launches {counts} (prefill {run['launches']['prefill']}, decode "
+        f"{run['launches']['decode']}), {other}; prefill "
+        f"{run['prefill_s']:.6f} s{split}, decode "
+        f"{run['decode_s'] / steps * 1e3:.6f} ms/step (first run); peak "
+        f"device memory {peak_gb:.2f} GB "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); first row "
+        f"{run['tokens'][0, :12].tolist()}")
+    return run
+
+
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2837,7 +3045,10 @@ def main() -> int:
     from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
     from repro_torch.configs.deepseek_v2_236b import (
         ONE_CHIP as DEEPSEEK_ONE_CHIP)
+    from repro_torch.configs.base import SHAPES
     from repro_torch.configs.jamba15_large_398b import ONE_CHIP
+    from repro_torch.configs.llama32_vision_11b import CONFIG as VISION
+    from repro_torch.configs.seamless_m4t_medium import CONFIG as SEAMLESS
     from repro_torch.configs.llama4_scout_17b_a16e import (
         ONE_CHIP as LLAMA4_ONE_CHIP)
     from repro_torch.core import allocator, engine, headline, workloads
@@ -3179,11 +3390,73 @@ def main() -> int:
         b=DEEPSEEK_BATCH, s=DEEPSEEK_PROMPT, hq=cfg.n_heads,
         hkv=cfg.n_heads, d=cfg.nope_head_dim + cfg.rope_head_dim,
         n_caches=0, seq=0, v_dim=cfg.v_head_dim)
+    deepseek = (f"{DEEPSEEK_ONE_CHIP.name} one-card cut", run["counts"],
+                deepseek_t)
+    del run                         # the deepseek-v2 cut's weights, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7e. both attention kernels at the cross-attention models' shapes
+    cross_err = phase_cross_attention(torch, fops, fref, dops, dref)
+
+    # 8e. cross-attention: llama-3.2-vision-11b as published, over a
+    # memory of 1601 image patches
+    run = phase_cross_serve(torch, serve, MDL, SHAPES, VISION, kernels,
+                            others, phase="8e", want_params=VISION_PARAMS)
+
+    # 9e. the plain attention, teacher-forced, against it (memory K/V
+    # included)
+    phase_serve_ref(torch, serve, run, "9e")
+
+    # 10e. timing: flash and decode attention over the memory, a second
+    # serve run, a profiled step
+    vision_t = log_serve_timing(
+        torch, F, serve, MDL, run, "10e", fops, fref, dops, dref, usage,
+        b=CROSS_BATCH, s=CROSS_PROMPT, sk=run["memory"].shape[1],
+        causal=False, hq=VISION.n_heads, hkv=VISION.n_kv_heads,
+        d=VISION.resolved_head_dim,
+        n_caches=VISION.layer_kinds().count("cross"),
+        seq=run["memory"].shape[1])
+    vision = (VISION.name, run["counts"], vision_t)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8f-10f. the encoder: seamless-m4t-medium as published, over 1024
+    # speech frames
+    run = phase_cross_serve(torch, serve, MDL, SHAPES, SEAMLESS, kernels,
+                            others, phase="8f", want_params=SEAMLESS_PARAMS)
+    phase_serve_ref(torch, serve, run, "9f")
+    m = run["memory"].shape[1]
+    enc_t = attention_timing(
+        torch, F, fops, fref, dops, dref, b=CROSS_BATCH, s=m, causal=False,
+        hq=SEAMLESS.n_heads, hkv=SEAMLESS.n_kv_heads,
+        d=SEAMLESS.resolved_head_dim, n_caches=0, seq=0)["flash_attention"]
+    log(f"phase 10f: flash_attention at {SEAMLESS.name}'s encoder shape "
+        f"({CROSS_BATCH} x {SEAMLESS.n_heads} heads, S = Sk = {m}, D "
+        f"{SEAMLESS.resolved_head_dim}, not causal): kernel "
+        f"{enc_t['ms']:.6f} ms ({enc_t['bound_ms'] / enc_t['ms']:.4f} of "
+        f"its bound; device {enc_t['device_us']} us per launch), plain "
+        f"{enc_t['plain_ms']:.6f} ms, scaled_dot_product_attention "
+        f"{enc_t['library_ms']:.6f} ms, bound {enc_t['bound_ms']:.6f} ms "
+        f"({enc_t['bound_by']}: {enc_t['bytes']} bytes, {enc_t['flops']} "
+        f"flop)")
+    seamless_t = log_serve_timing(
+        torch, F, serve, MDL, run, "10f", fops, fref, dops, dref, usage,
+        b=CROSS_BATCH, s=CROSS_PROMPT, sk=m, causal=False,
+        hq=SEAMLESS.n_heads, hkv=SEAMLESS.n_kv_heads,
+        d=SEAMLESS.resolved_head_dim,
+        n_caches=SEAMLESS.layer_kinds().count("cross"), seq=m)
+    seamless = (SEAMLESS.name, run["counts"], seamless_t)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]
     errs = dict(attn_err, ssm_scan=ssm_err)
     mla_errs = dict(errs, flash_attention=mla_err)
+    cross_errs = dict(errs, **cross_err)
     replaces = {
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:36",
@@ -3193,8 +3466,8 @@ def main() -> int:
     # one entry per kernel and serving path, each with that path's
     # launches and the times at that path's shapes
     paths = [granite + (errs,), jamba + (errs,), llama4 + (errs,),
-             (f"{DEEPSEEK_ONE_CHIP.name} one-card cut", run["counts"],
-              deepseek_t, mla_errs)]
+             deepseek + (mla_errs,), vision + (cross_errs,),
+             seamless + (cross_errs,)]
     serve_entries = [{
         "name": name,
         "path": path,

@@ -6,12 +6,16 @@
 
 Parameters are drawn on ``--device`` from ``torch.Generator`` seeded with
 ``--seed``; prompts come from ``numpy.random.default_rng(seed)`` as in the
-reference.  Prefill runs the flash-attention kernel in each attention
-layer and the selective-scan kernel in each Mamba layer, and every decode
-step the decode-attention kernel; :func:`generate` with
-``attn_impl="ref"`` / ``ssm_impl="ref"`` runs their plain versions
-instead.  :func:`main` returns the run (tokens, logits, caches, timings
-and kernel launches per phase) so callers can check it.
+reference, and for a VLM or audio model (``family`` ``vlm`` / ``audio``)
+so does the stub frontend's memory, 16 rows of ``N(0, 0.1^2)`` in bf16
+drawn right after the prompts.  Prefill runs the flash-attention kernel
+in each attention layer (self-attention, cross-attention over the memory,
+the encoder's layers) and the selective-scan kernel in each Mamba layer,
+and every decode step the decode-attention kernel in each self- and
+cross-attention; :func:`generate` with ``attn_impl="ref"`` /
+``ssm_impl="ref"`` runs their plain versions instead.  :func:`main`
+returns the run (tokens, logits, caches, timings and kernel launches per
+phase) so callers can check it.
 """
 
 from __future__ import annotations
@@ -42,10 +46,26 @@ def build(cfg: ArchConfig, *, seed: int, device,
     return T.init_params(cfg, gen, device=device, dtype=dtype)
 
 
+#: the reference CLI's memory rows for a VLM or audio model
+CLI_MEMORY_LEN = 16
+
+
 def make_prompts(cfg: ArchConfig, batch: int, prompt_len: int,
                  seed: int) -> np.ndarray:
+    return make_inputs(cfg, batch, prompt_len, seed)[0]
+
+
+def make_inputs(cfg: ArchConfig, batch: int, prompt_len: int, seed: int,
+                mem_len: int = 0):
+    """The prompts ``(batch, prompt_len)`` and, with ``mem_len``, the
+    memory ``(batch, mem_len, d_model)`` bf16 (else None), drawn from
+    ``numpy.random.default_rng(seed)`` in the reference CLI's order."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab, (batch, prompt_len))
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len))
+    if not mem_len:
+        return prompts, None
+    memory = rng.standard_normal((batch, mem_len, cfg.d_model)) * 0.1
+    return prompts, torch.from_numpy(memory).to(torch.bfloat16)
 
 
 def _sync(device: torch.device) -> None:
@@ -65,25 +85,40 @@ def _delta(after: dict, before: dict) -> dict:
 
 @torch.inference_mode()
 def generate(model: T.Transformer, cfg: ArchConfig, prompts: torch.Tensor,
-             decode_tokens: int, *, attn_impl: str = "kernel",
-             ssm_impl: str = "kernel",
+             decode_tokens: int, *, memory: Optional[torch.Tensor] = None,
+             attn_impl: str = "kernel", ssm_impl: str = "kernel",
              forced: Optional[torch.Tensor] = None) -> dict:
     """Prefill ``prompts`` (B, P) then run ``decode_tokens - 1`` greedy
-    decode steps.  With ``forced`` (B, decode_tokens) the decode inputs
-    are teacher-forced: step ``i`` is fed ``forced[:, i]`` instead of the
+    decode steps.  A model with cross layers takes ``memory`` (B, M, d):
+    its frontend's embeddings, encoded first when it has an encoder.
+    With ``forced`` (B, decode_tokens) the decode inputs are
+    teacher-forced: step ``i`` is fed ``forced[:, i]`` instead of the
     token it picked before.  Returns the tokens (B, decode_tokens), every
-    step's logits (prefill first), the caches, wall times (synchronised)
-    and the kernels' launches in each phase."""
+    step's logits (prefill first), the caches, wall times (synchronised;
+    ``prefill_s`` includes ``encode_s``, the encoder's span) and the
+    kernels' launches in each phase."""
     b, p = prompts.shape
     dev = prompts.device
-    caches = T.init_caches(cfg, b, p + decode_tokens, device=dev)
+    mem_len, mem_dtype = 0, torch.bfloat16
+    if memory is not None:
+        # the memory K/V in the projection's dtype (an encoder's output
+        # is already in it)
+        mem_len = memory.shape[1]
+        mem_dtype = torch.promote_types(memory.dtype, model.embed.dtype)
+    caches = T.init_caches(cfg, b, p + decode_tokens, memory_len=mem_len,
+                           memory_dtype=mem_dtype, device=dev)
     prefill = MDL.make_prefill_step(cfg, attn_impl, ssm_impl)
     decode = MDL.make_decode_step(cfg, attn_impl)
 
     n0 = _launches()
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(model, prompts, caches)
+    encoded = bool(cfg.encoder_layers) and memory is not None
+    if encoded:                      # the encoder's span, timed apart
+        memory = T.encode(model, cfg, memory, attn_impl)
+        _sync(dev)
+    encode_s = time.perf_counter() - t0 if encoded else 0.0
+    logits, caches = prefill(model, prompts, caches, memory, encoded)
     tokens = [logits[:, :cfg.vocab].argmax(dim=-1)]
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -100,7 +135,8 @@ def generate(model: T.Transformer, cfg: ArchConfig, prompts: torch.Tensor,
     _sync(dev)
     decode_s = time.perf_counter() - t1
     return {"tokens": torch.stack(tokens, dim=1), "logits": all_logits,
-            "caches": caches, "prefill_s": prefill_s, "decode_s": decode_s,
+            "caches": caches, "prefill_s": prefill_s,
+            "encode_s": encode_s, "decode_s": decode_s,
             "launches": {"prefill": _delta(n1, n0),
                          "decode": _delta(_launches(), n1)}}
 
@@ -126,11 +162,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"device={device}", flush=True)
     model = build(cfg, seed=args.seed, device=device)
     n_params = sum(t.numel() for t in model.parameters())
-    prompts = torch.from_numpy(make_prompts(
-        cfg, args.batch, args.prompt_len, args.seed)).to(device)
-    run = generate(model, cfg, prompts, args.decode_tokens)
+    mem_len = CLI_MEMORY_LEN if cfg.family in ("vlm", "audio") else 0
+    prompts, memory = make_inputs(cfg, args.batch, args.prompt_len,
+                                  args.seed, mem_len)
+    prompts = torch.from_numpy(prompts).to(device)
+    if memory is not None:
+        memory = memory.to(device)
+    run = generate(model, cfg, prompts, args.decode_tokens, memory=memory)
 
     print(f"[serve] params: {n_params}")
+    if memory is not None:
+        print(f"[serve] memory: {tuple(memory.shape)} {memory.dtype}")
     print(f"[serve] prefill: {run['prefill_s'] * 1e3:.1f} ms "
           f"({args.batch * args.prompt_len / run['prefill_s']:.0f} tok/s)")
     if args.decode_tokens > 1:
@@ -141,7 +183,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print("[serve] sample continuations (first 3 rows):")
     for row in run["tokens"][:3].tolist():
         print("   ", row[:12])
-    return dict(run, cfg=cfg, model=model, prompts=prompts,
+    return dict(run, cfg=cfg, model=model, prompts=prompts, memory=memory,
                 n_params=n_params)
 
 

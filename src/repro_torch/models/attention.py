@@ -1,5 +1,5 @@
-"""GQA self-attention with KV-cache serving (the port of
-``repro.models.attention``'s self-attention half).
+"""GQA self-attention with KV-cache serving, and cross-attention over a
+fixed-length memory (the port of ``repro.models.attention``).
 
 * Prefill attention goes through the flash-attention kernel
   (:func:`repro_torch.kernels.flash_attention.ops.attention`), decode
@@ -14,6 +14,12 @@
   roped in the ``(B, S, H, D)`` layout of the projection; the kernel
   reads the ``(B, H, S, D)`` views through their strides, so neither side
   is copied into another layout.
+* Cross-attention (VLM image layers, the enc-dec decoder) has no rope and
+  no mask: prefill is non-causal flash attention over the memory's
+  ``Sk = M`` rows, decode is decode attention with every length ``M``
+  over the memory K/V that prefill wrote.  The memory may be bf16 under
+  f32 weights; ``memory @ W`` then promotes as ``jnp`` does (the weights
+  are never cast down).
 """
 
 from __future__ import annotations
@@ -131,3 +137,86 @@ def attn_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     cache = cache_append(cache, k, v, pos)
     o = decode_attention(q, cache["k"], cache["v"], pos + 1, impl=impl)
     return o.reshape(b, n_heads * head_dim) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------- #
+# cross-attention (VLM image layers, enc-dec decoder)
+# --------------------------------------------------------------------- #
+def cross_init(generator, d_model: int, n_heads: int, n_kv_heads: int,
+               head_dim: int, *, device,
+               dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    return attn_init(generator, d_model, n_heads, n_kv_heads, head_dim,
+                     device=device, dtype=dtype)
+
+
+def _matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the dtype ``jnp`` promotes the two to (``torch.matmul``
+    refuses mixed dtypes): bf16 memory under f32 weights is cast up
+    exactly, as XLA does."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def memory_kv(p, memory: torch.Tensor, *, n_kv_heads: int,
+              head_dim: int) -> Dict[str, torch.Tensor]:
+    """The cross-attention K/V of ``memory`` (B, M, d): ``{"k", "v"}`` of
+    shape ``(B, M, Hkv, D)`` in the projection's dtype."""
+    b, m, _ = memory.shape
+    return {"k": _matmul(memory, p["wk"]).view(b, m, n_kv_heads, head_dim),
+            "v": _matmul(memory, p["wv"]).view(b, m, n_kv_heads, head_dim)}
+
+
+def _cross_attend(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], *,
+                  n_heads: int, head_dim: int, impl: str) -> torch.Tensor:
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).view(b, s, n_heads, head_dim)
+    o = flash_attention(q.transpose(1, 2), kv["k"].transpose(1, 2),
+                        kv["v"].transpose(1, 2), causal=False, impl=impl)
+    return o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+
+def cross_forward(p, x: torch.Tensor, memory: torch.Tensor, *,
+                  n_heads: int, n_kv_heads: int, head_dim: int,
+                  impl: str = "kernel") -> torch.Tensor:
+    """x: (B, S, d) queries; memory: (B, M, d).  No rope, not causal."""
+    kv = memory_kv(p, memory, n_kv_heads=n_kv_heads, head_dim=head_dim)
+    return _cross_attend(p, x, kv, n_heads=n_heads, head_dim=head_dim,
+                         impl=impl)
+
+
+def cross_prefill(p, x: torch.Tensor, memory: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], *, n_heads: int,
+                  n_kv_heads: int, head_dim: int, impl: str = "kernel"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`cross_forward`, with the memory K/V (the reference's
+    ``build_memory_kv``, the same products) written into ``cache``
+    (``{"k", "v"}`` of ``(B, M, Hkv, D)``, the projection's dtype) in
+    place."""
+    kv = memory_kv(p, memory, n_kv_heads=n_kv_heads, head_dim=head_dim)
+    for name in ("k", "v"):
+        if cache[name].dtype != kv[name].dtype:
+            raise TypeError(f"memory {name} cache is {cache[name].dtype}, "
+                            f"the projection {kv[name].dtype}: it would "
+                            f"round the memory K/V")
+        cache[name].copy_(kv[name])
+    return _cross_attend(p, x, kv, n_heads=n_heads, head_dim=head_dim,
+                         impl=impl), cache
+
+
+def cross_decode(p, x: torch.Tensor, memory_kv: Dict[str, torch.Tensor], *,
+                 n_heads: int, n_kv_heads: int, head_dim: int,
+                 lengths: Optional[torch.Tensor] = None,
+                 impl: str = "kernel") -> torch.Tensor:
+    """Decode-time cross-attention against precomputed memory K/V.
+
+    x: (B, d); memory_kv: {'k','v': (B, M, Hkv, D)}; ``lengths`` (B,)
+    int32, every entry M (made here when not given: a caller that steps
+    many times keeps one buffer)."""
+    b = x.shape[0]
+    q = (x @ p["wq"]).view(b, n_heads, head_dim)
+    if lengths is None:
+        lengths = torch.full((b,), memory_kv["k"].shape[1],
+                             dtype=torch.int32, device=x.device)
+    o = decode_attention(q, memory_kv["k"], memory_kv["v"], lengths,
+                         impl=impl)
+    return o.reshape(b, n_heads * head_dim) @ p["wo"]

@@ -60,7 +60,8 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0,
                      device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    # the compiled reference folds this constant in f64, then rounds
+    return (1.0 / (theta ** exps.double())).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -115,10 +116,18 @@ def gelu_mlp_init(generator, d: int, d_ff: int, *, device,
                                 dtype=dtype)}
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh approximation) as XLA lowers it:
+    ``x * (0.5 * (1 + tanh(c * (x + k * x*x*x))))`` with the constants
+    and every op rounded to x's dtype.  (``torch.nn.functional.gelu``
+    rounds once, which in bf16 lands an ulp away on ~40% of inputs.)"""
+    c, k = (torch.tensor(v, dtype=torch.float32, device=x.device).to(
+        x.dtype) for v in (math.sqrt(2 / math.pi), 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    h = torch.nn.functional.gelu(x @ p["w_in"], approximate="tanh")
-    return h @ p["w_out"]
+    return gelu(x @ p["w_in"]) @ p["w_out"]
 
 
 # --------------------------------------------------------------------- #

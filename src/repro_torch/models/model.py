@@ -1,6 +1,6 @@
 """Model facade for serving (the port of ``repro.models.model``'s serving
-half): the prefill and decode step functions and the parameter
-counts.
+half): the prefill and decode step functions, the parameter counts and
+the stub frontends' memory length.
 
 ``attn_impl`` and ``ssm_impl`` are ``"kernel"`` (the Hopper attention
 and selective-scan kernels on CUDA tensors, their plain versions on CPU
@@ -14,15 +14,16 @@ for ROADMAP Queue 1 item 12.
 
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import transformer as T
 
 
 def make_prefill_step(cfg: ArchConfig, attn_impl: str = "kernel",
                       ssm_impl: str = "kernel"):
-    def prefill_step(model, tokens, caches):
-        return T.forward_prefill(model, cfg, tokens, caches,
-                                 attn_impl=attn_impl, ssm_impl=ssm_impl)
+    def prefill_step(model, tokens, caches, memory=None, encoded=False):
+        return T.forward_prefill(model, cfg, tokens, caches, memory=memory,
+                                 encoded=encoded, attn_impl=attn_impl,
+                                 ssm_impl=ssm_impl)
     return prefill_step
 
 
@@ -31,6 +32,16 @@ def make_decode_step(cfg: ArchConfig, attn_impl: str = "kernel"):
         return T.forward_decode(model, cfg, token, caches, pos,
                                 attn_impl=attn_impl)
     return decode_step
+
+
+def memory_len(cfg: ArchConfig, shape: ShapeCell) -> int:
+    """Stub modality-token count for VLM/audio frontends."""
+    if cfg.family == "audio":
+        # speech frames after the (stubbed) frontend: seq/4
+        return max(16, shape.seq_len // 4)
+    if cfg.family == "vlm":
+        return cfg.frontend_tokens
+    return 0
 
 
 def param_count(cfg: ArchConfig) -> int:

@@ -1,6 +1,7 @@
-"""Architecture assembly for serving: stacks of ``"attn"`` and
-``"mamba"`` blocks with dense or MoE FFNs (the port of
-``repro.models.transformer``'s serving path).
+"""Architecture assembly for serving: stacks of ``"attn"``, ``"cross"``
+and ``"mamba"`` blocks with dense or MoE FFNs, and the encoder of an
+encoder-decoder (the port of ``repro.models.transformer``'s serving
+path).
 
 The reference stacks parameters per pattern slot and runs
 ``jax.lax.scan`` over repetitions; the port holds one :class:`Block` per
@@ -13,16 +14,18 @@ the pattern.  :func:`params_from_numpy` / :func:`params_to_numpy` map
 between the two.
 
 Supported: ``"attn"`` (self-attention, or multi-head latent attention
-when ``cfg.mla``) and ``"mamba"`` blocks, each with a dense FFN (SwiGLU
-or GELU, RMSNorm or LayerNorm), an MoE FFN (:class:`MoEFFN`,
+when ``cfg.mla``), ``"cross"`` (self-attention, ``norm_c``, then
+cross-attention over a memory) and ``"mamba"`` blocks, each with a dense
+FFN (SwiGLU or GELU, RMSNorm or LayerNorm), an MoE FFN (:class:`MoEFFN`,
 ``models/moe.py``) on the layers ``cfg.is_moe_layer`` picks, or none;
-and the dense first layer.  Each kind's mixer init, cache, prefill and
-decode, and its names in the reference's trees, are one entry of
-:data:`KINDS`; :func:`layer_plan` gives an ``"attn"`` layer of an MLA
-config the kind ``"mla"`` (the dense first layer too, as in the
-reference), while :func:`slot_kinds` keeps the reference's pattern
-names.  mLSTM/sLSTM blocks (item 11b), and cross-attention and the
-encoder (11c) raise ``NotImplementedError`` naming the ROADMAP item
+the dense first layer; and with ``cfg.encoder_layers`` a bidirectional
+encoder of ``"attn"`` blocks (:func:`encode`) that turns the memory into
+the decoder's.  Each kind's mixer init, cache, prefill and decode, and
+its names in the reference's trees, are one entry of :data:`KINDS`;
+:func:`layer_plan` gives an ``"attn"`` layer of an MLA config the kind
+``"mla"`` (the dense first layer too, as in the reference), while
+:func:`slot_kinds` keeps the reference's pattern names.  mLSTM/sLSTM
+blocks (item 11b) raise ``NotImplementedError`` naming the ROADMAP item
 that ports them.
 
 Caches hold the kinds' state side by side, each stacked over the
@@ -33,11 +36,24 @@ latent ``{"c_kv", "k_rope"}`` of shapes ``(n_mla, B, max_seq, kv_lora)``
 and ``(n_mla, B, max_seq, rope)`` in bf16 for the MLA layers, and
 ``{"conv", "ssm"}`` of shapes ``(n_mamba, B, K-1, d_inner)`` bf16 and
 ``(n_mamba, B, d_inner, N)`` f32 for the Mamba layers; a dense model has
-only ``k`` and ``v``, one per layer.  Prefill writes the KV and latent
-caches in place and, like the reference, leaves the Mamba state as it was
+only ``k`` and ``v``, one per layer.  A cross layer's self-attention K/V
+sit in the attention stack; with ``init_caches(memory_len=M)`` the cross
+layers' memory K/V are ``memory_k`` / ``memory_v`` of shape ``(n_cross,
+B, M, Hkv, D)`` in the projection's dtype (the reference's prefill
+replaces its bf16 zeros with ``build_memory_kv``'s output, the same
+products its cross layers' prefill computes, so the port's cross layers
+write them as they attend), and ``memory_len`` ``(B,)`` int32 holds M
+for every sequence, the cross decode's lengths.  Prefill writes the KV,
+latent and memory caches in place and, like the reference, leaves the
+Mamba state as it was
 (``repro.models.transformer`` skips the terminal state: decode starts
 every Mamba layer from its cached state, zero after :func:`init_caches`).
-Decode writes both in place.
+Decode writes the KV and Mamba caches in place.
+
+Rounding follows the reference's compiled program: within a step of its
+layer scan a norm reads the residual stream's f32 sum (:func:`_add`),
+while the scan's carry, between steps and into the norm after the scan,
+is rounded to the activation dtype (:func:`carry_rounds`).
 """
 
 from __future__ import annotations
@@ -63,19 +79,11 @@ _QUEUE = "ROADMAP Queue 1 item 11"
 # what the port serves
 # --------------------------------------------------------------------- #
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and cross-attention (VLM/audio) are "
-            f"not ported yet ({_QUEUE}c)")
     for kind in cfg.pattern:
         if kind in ("mlstm", "slstm"):
             raise NotImplementedError(
                 f"{cfg.name}: {kind} blocks (models/xlstm.py) are not "
                 f"ported yet ({_QUEUE}b)")
-        if kind == "cross":
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention blocks (VLM/audio) are not "
-                f"ported yet ({_QUEUE}c)")
         if kind not in KINDS:
             raise ValueError(kind)
 
@@ -147,17 +155,38 @@ Residual = Tuple[torch.Tensor, torch.Tensor]
 
 
 def residual(x: torch.Tensor) -> Residual:
+    """The stream from ``x`` alone: also what a scan carry is, since the
+    reference's compiled layer scan stores its carry rounded to the
+    activation dtype (see :func:`carry_rounds`)."""
     return x, x.float()
+
+
+def carry_rounds(n_prefix: int, period: int, reps: int) -> List[bool]:
+    """For each of ``n_prefix + period * reps`` layers, whether its input
+    is the reference's layer-scan carry: the first layer of every
+    repetition when the scan runs at least two.  The compiled scan is a
+    loop whose carry is stored in the activation dtype, so the layer's
+    norm reads the rounded stream; XLA drops a one-trip loop and fuses
+    across it, so one repetition rounds nowhere.  The norm after the scan
+    (the final norm, the encoder's) reads the carry likewise when
+    ``reps >= 2``."""
+    out = [False] * (n_prefix + period * reps)
+    if reps >= 2:
+        for r in range(reps):
+            out[n_prefix + r * period] = True
+    return out
 
 
 def _add(res: Residual, o: torch.Tensor) -> Residual:
     """A residual add as the reference's compiled program computes it:
     ``x + o`` rounded to the activation dtype feeds the next add, while
     the next norm reads the f32 sum -- XLA fuses the norm's f32 convert
-    into the add and drops the rounding between."""
+    into the add and drops the rounding between (within a scan step; a
+    scan's carry is rounded, :func:`carry_rounds`)."""
     x = res[0]
     xf = torch.add(x.float(), o)    # f32: the sum before its rounding
-    return xf.to(x.dtype), xf
+    # bf16 + f32 (a bf16 memory entering f32 weights) promotes, as in jnp
+    return xf.to(torch.promote_types(x.dtype, o.dtype)), xf
 
 
 class Norm(nn.Module):
@@ -223,13 +252,16 @@ class MoEFFN(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: a pre-norm mixer -- self-attention (``kind="attn"``)
-    or the Mamba mixer (``kind="mamba"``) -- and a dense FFN (a tree of
-    tensors), an MoE FFN or none."""
+    """One layer: a pre-norm mixer -- self-attention (``kind="attn"``),
+    self-attention then a pre-norm (``norm_c``) cross-attention over the
+    memory (``kind="cross"``, its weights ``cross``), or the Mamba mixer
+    (``kind="mamba"``) -- and a dense FFN (a tree of tensors), an MoE FFN
+    or none."""
 
     def __init__(self, cfg: ArchConfig, kind: str, norm1: Norm,
                  mixer: Dict[str, torch.Tensor], norm2: Optional[Norm],
-                 ffn):
+                 ffn, cross: Optional[Dict[str, torch.Tensor]] = None,
+                 norm_c: Optional[Norm] = None):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
@@ -238,6 +270,8 @@ class Block(nn.Module):
         self.norm2 = norm2
         self.ffn = (ffn if ffn is None or isinstance(ffn, MoEFFN)
                     else _params(ffn))
+        self.cross = _params(cross) if cross is not None else None
+        self.norm_c = norm_c
 
     def _dims(self) -> dict:
         cfg = self.cfg
@@ -259,16 +293,48 @@ class Block(nn.Module):
         return _add(res, L.gelu_mlp(h, self.ffn))
 
     def prefill(self, res: Residual, cache: Dict[str, torch.Tensor],
-                attn_impl: str, ssm_impl: str) -> Residual:
+                attn_impl: str, ssm_impl: str,
+                memory: Optional[torch.Tensor] = None,
+                mem_cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Residual:
+        """``memory`` (B, M, d) and ``mem_cache`` (this layer's memory
+        K/V, written here): a cross layer's."""
         o = KINDS[self.kind].prefill(self, self.norm1(res), cache,
                                      attn_impl, ssm_impl)
-        return self._ffn(_add(res, o))
+        res = _add(res, o)
+        if self.cross is not None:
+            res = _add(res, A.cross_prefill(
+                self.cross, self.norm_c(res), memory, mem_cache,
+                impl=attn_impl, **self._cross_dims())[0])
+        return self._ffn(res)
 
     def decode(self, res: Residual, cache: Dict[str, torch.Tensor],
-               pos: torch.Tensor, attn_impl: str) -> Residual:
+               pos: torch.Tensor, attn_impl: str,
+               mem_cache: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Residual:
+        """``mem_cache``: a cross layer's memory K/V and lengths."""
         o = KINDS[self.kind].decode(self, self.norm1(res), cache, pos,
                                     attn_impl)
+        res = _add(res, o)
+        if self.cross is not None:
+            res = _add(res, A.cross_decode(
+                self.cross, self.norm_c(res), mem_cache,
+                lengths=mem_cache["lengths"], impl=attn_impl,
+                **self._cross_dims()))
+        return self._ffn(res)
+
+    def encode(self, res: Residual, attn_impl: str) -> Residual:
+        """An encoder layer: bidirectional self-attention with RoPE at
+        ``arange(S)`` (the reference's ``"attn"`` block in train mode,
+        ``causal=False``)."""
+        o = A.attn_forward(self.mixer, self.norm1(res), causal=False,
+                           impl=attn_impl, **self._dims())
         return self._ffn(_add(res, o))
+
+    def _cross_dims(self) -> dict:
+        cfg = self.cfg
+        return {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                "head_dim": cfg.resolved_head_dim}
 
 
 # --------------------------------------------------------------------- #
@@ -344,29 +410,38 @@ class Kind:
     cache: Callable     # (cfg, batch, max_seq, device) -> a layer's cache
     prefill: Callable   # (block, h, cache, attn_impl, ssm_impl) -> out
     decode: Callable    # (block, h, cache, pos, attn_impl) -> out
+    stack: str          # the kind whose cache stack holds this one's
 
 
 KINDS: Dict[str, Kind] = {
     "attn": Kind("self", "kv", ("k", "v"), _attn_init, _attn_cache,
-                 _attn_prefill, _attn_decode),
+                 _attn_prefill, _attn_decode, "attn"),
+    # a cross layer's self-attention; its cross half is the Block's
+    "cross": Kind("self", "kv", ("k", "v"), _attn_init, _attn_cache,
+                  _attn_prefill, _attn_decode, "attn"),
     "mamba": Kind("mamba", "mamba", ("conv", "ssm"), _mamba_init,
-                  _mamba_cache, _mamba_prefill, _mamba_decode),
+                  _mamba_cache, _mamba_prefill, _mamba_decode, "mamba"),
     "mla": Kind("self", "kv", ("c_kv", "k_rope"), _mla_init, _mla_cache,
-                _mla_prefill, _mla_decode),
+                _mla_prefill, _mla_decode, "mla"),
 }
 
 
 class Transformer(nn.Module):
-    """Embedding (tied unembedding), the layers, the final norm."""
+    """Embedding (tied unembedding), the layers, the final norm; with
+    ``cfg.encoder_layers``, the encoder's layers and its final norm."""
 
     def __init__(self, cfg: ArchConfig, embed: torch.Tensor,
-                 blocks: List[Block], final_norm: Norm):
+                 blocks: List[Block], final_norm: Norm,
+                 encoder: Optional[List[Block]] = None,
+                 enc_norm: Optional[Norm] = None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.embed = _frozen(embed)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
+        self.encoder = nn.ModuleList(encoder or [])
+        self.enc_norm = enc_norm
 
 
 # --------------------------------------------------------------------- #
@@ -400,43 +475,68 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     device = torch.device(device)
     embed = L.embedding_init(generator, cfg.padded_vocab, cfg.d_model,
                              device=device, dtype=dtype)
-    blocks = []
-    for kind, moe in layer_plan(cfg):
+
+    def block(kind, moe):
         mixer = KINDS[kind].init(generator, cfg, device, dtype)
+        cross = norm_c = None
+        if kind == "cross":
+            cross = A.cross_init(generator, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.resolved_head_dim,
+                                 device=device, dtype=dtype)
+            norm_c = _norm_params(cfg, device, dtype)
         ffn = (MoEFFN(moe_dims(cfg), MOE.moe_init(
             generator, moe_dims(cfg), device=device, dtype=dtype))
             if moe else _ffn_params(generator, cfg, device, dtype))
-        blocks.append(Block(cfg, kind, _norm_params(cfg, device, dtype),
-                            mixer,
-                            _norm_params(cfg, device, dtype)
-                            if ffn is not None else None, ffn))
-    return Transformer(cfg, embed, blocks, _norm_params(cfg, device, dtype))
+        return Block(cfg, kind, _norm_params(cfg, device, dtype), mixer,
+                     _norm_params(cfg, device, dtype)
+                     if ffn is not None else None, ffn, cross, norm_c)
+
+    blocks = [block(kind, moe) for kind, moe in layer_plan(cfg)]
+    encoder = [block(block_kind(cfg, "attn"), False)
+               for _ in range(cfg.encoder_layers)]
+    return Transformer(cfg, embed, blocks, _norm_params(cfg, device, dtype),
+                       encoder, _norm_params(cfg, device, dtype)
+                       if encoder else None)
 
 
 def cache_slots(cfg: ArchConfig) -> List[Tuple[str, int]]:
-    """(kind, index in that kind's cache stack) for every layer."""
+    """(kind, index in its kind's cache stack) for every layer."""
     seen = dict.fromkeys(KINDS, 0)
     out = []
     for kind, _ in layer_plan(cfg):
-        out.append((kind, seen[kind]))
-        seen[kind] += 1
+        out.append((kind, seen[KINDS[kind].stack]))
+        seen[KINDS[kind].stack] += 1
     return out
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
+                memory_len: int = 0,
+                memory_dtype: torch.dtype = torch.bfloat16,
                 device="cuda") -> Dict[str, torch.Tensor]:
-    """Zeroed caches, each kind's stacked over the layers of that kind
-    (a layer's shapes and dtypes read off its kind's cache on ``meta``)."""
+    """Zeroed caches, each stack's over the layers it holds (a layer's
+    shapes and dtypes read off its kind's cache on ``meta``); with
+    ``memory_len`` and cross layers, the memory K/V in ``memory_dtype``
+    (the memory projection's, ``memory @ W`` promoted) and their
+    lengths."""
     _check_supported(cfg)
-    kinds = [kind for kind, _ in layer_plan(cfg)]
+    stacks = [KINDS[kind].stack for kind, _ in layer_plan(cfg)]
     caches = {}
     for name, kind in KINDS.items():
-        n = kinds.count(name)
+        n = stacks.count(name) if kind.stack == name else 0
         if n:
             caches.update({c: torch.zeros((n,) + t.shape, dtype=t.dtype,
                                           device=device)
                            for c, t in kind.cache(cfg, batch, max_seq,
                                                   "meta").items()})
+    n_cross = [kind for kind, _ in layer_plan(cfg)].count("cross")
+    if memory_len and n_cross:
+        shape = (n_cross, batch, memory_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        caches["memory_k"] = torch.zeros(shape, dtype=memory_dtype,
+                                         device=device)
+        caches["memory_v"] = torch.zeros_like(caches["memory_k"])
+        caches["memory_len"] = torch.full((batch,), memory_len,
+                                          dtype=torch.int32, device=device)
     return caches
 
 
@@ -446,22 +546,79 @@ def _layer_cache(caches: Dict[str, torch.Tensor], slot: Tuple[str, int]
     return {name: caches[name][j] for name in KINDS[kind].cache_names}
 
 
+def _memory_caches(caches: Dict[str, torch.Tensor], cfg: ArchConfig
+                   ) -> List[Optional[Dict[str, torch.Tensor]]]:
+    """Every layer's memory K/V (and lengths): a cross layer's, None for
+    the others."""
+    out, j = [], 0
+    for kind, _ in layer_plan(cfg):
+        if kind == "cross":
+            out.append({"k": caches["memory_k"][j],
+                        "v": caches["memory_v"][j],
+                        "lengths": caches["memory_len"]})
+            j += 1
+        else:
+            out.append(None)
+    return out
+
+
 def _logits(model: Transformer, cfg: ArchConfig,
             res: Residual) -> torch.Tensor:
     return _mask_padded(L.unembed(model.final_norm(res), model.embed), cfg)
 
 
+def _layer_rounds(cfg: ArchConfig) -> List[bool]:
+    return carry_rounds(1 if cfg.first_layer_dense else 0,
+                        len(cfg.pattern), n_scan_reps(cfg))
+
+
+def encode(model: Transformer, cfg: ArchConfig, frames: torch.Tensor,
+           attn_impl: str = "kernel") -> torch.Tensor:
+    """The bidirectional encoder over precomputed frontend embeddings
+    ``frames`` (B, M, d), then its final norm (the reference scans its
+    layers: the carry is rounded between them, :func:`carry_rounds`)."""
+    n = len(model.encoder)
+    res = residual(frames)
+    for blk, rounds in zip(model.encoder, carry_rounds(0, 1, n)):
+        res = blk.encode(residual(res[0]) if rounds else res, attn_impl)
+    return model.enc_norm(residual(res[0]) if n >= 2 else res)
+
+
+def _has_cross(cfg: ArchConfig) -> bool:
+    return "cross" in cfg.pattern
+
+
 def forward_prefill(model: Transformer, cfg: ArchConfig,
                     tokens: torch.Tensor, caches: Dict[str, torch.Tensor],
-                    attn_impl: str = "kernel", ssm_impl: str = "kernel"
+                    memory: Optional[torch.Tensor] = None,
+                    attn_impl: str = "kernel", ssm_impl: str = "kernel",
+                    encoded: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: returns (last-token logits (B, Vp) f32, the caches, the
-    KV caches filled in place)."""
+    KV caches filled in place).  A model with cross layers takes
+    ``memory`` (B, M, d) -- run through the encoder first when it has one
+    and ``encoded`` is false (a caller that times the encoder apart passes
+    :func:`encode`'s output and ``encoded=True``) -- and writes its
+    memory K/V into caches made with ``memory_len=M``."""
+    if _has_cross(cfg):
+        if memory is None or "memory_k" not in caches:
+            raise ValueError(f"{cfg.name} cross-attends: prefill needs a "
+                             f"memory and caches made with memory_len")
+        if cfg.encoder_layers and not encoded:
+            memory = encode(model, cfg, memory, attn_impl)
+        mems = _memory_caches(caches, cfg)
+    else:
+        mems = [None] * len(model.blocks)
     res = residual(L.embed(tokens, model.embed))
-    for blk, slot in zip(model.blocks, cache_slots(cfg)):
-        res = blk.prefill(res, _layer_cache(caches, slot), attn_impl,
-                          ssm_impl)
-    return _logits(model, cfg, (res[0][:, -1], res[1][:, -1])), caches
+    rounds = _layer_rounds(cfg)
+    for blk, slot, mem, rnd in zip(model.blocks, cache_slots(cfg), mems,
+                                   rounds):
+        res = blk.prefill(residual(res[0]) if rnd else res,
+                          _layer_cache(caches, slot), attn_impl, ssm_impl,
+                          memory, mem)
+    last = res[0][:, -1]
+    return _logits(model, cfg, residual(last) if n_scan_reps(cfg) >= 2
+                   else (last, res[1][:, -1])), caches
 
 
 def forward_decode(model: Transformer, cfg: ArchConfig, token: torch.Tensor,
@@ -470,10 +627,16 @@ def forward_decode(model: Transformer, cfg: ArchConfig, token: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. token (B,), pos (B,) int32 -> (logits (B, Vp)
     f32, the caches, appended in place)."""
+    mems = (_memory_caches(caches, cfg) if _has_cross(cfg)
+            else [None] * len(model.blocks))
     res = residual(L.embed(token, model.embed))
-    for blk, slot in zip(model.blocks, cache_slots(cfg)):
-        res = blk.decode(res, _layer_cache(caches, slot), pos, attn_impl)
-    return _logits(model, cfg, res), caches
+    rounds = _layer_rounds(cfg)
+    for blk, slot, mem, rnd in zip(model.blocks, cache_slots(cfg), mems,
+                                   rounds):
+        res = blk.decode(residual(res[0]) if rnd else res,
+                         _layer_cache(caches, slot), pos, attn_impl, mem)
+    return _logits(model, cfg, residual(res[0]) if n_scan_reps(cfg) >= 2
+                   else res), caches
 
 
 # --------------------------------------------------------------------- #
@@ -537,6 +700,10 @@ def _tree_to(tree, bf16_dtype):
 def _block_from(cfg: ArchConfig, kind: str, moe: bool, p, device) -> Block:
     """One layer from one (unstacked) block of the reference's tree."""
     mixer = _tree_from(p["mixer"][KINDS[kind].mixer_key], device)
+    cross = norm_c = None
+    if kind == "cross":
+        cross = _tree_from(p["mixer"]["cross"], device)
+        norm_c = _norm_from(cfg, p["mixer"]["norm_c"], device)
     n2 = ffn = None
     if "ffn" in p:
         ffn = _tree_from(p["ffn"], device)
@@ -544,14 +711,15 @@ def _block_from(cfg: ArchConfig, kind: str, moe: bool, p, device) -> Block:
             ffn = MoEFFN(moe_dims(cfg), ffn)
         n2 = _norm_from(cfg, p["norm2"], device)
     return Block(cfg, kind, _norm_from(cfg, p["norm1"], device), mixer, n2,
-                 ffn)
+                 ffn, cross, norm_c)
 
 
 def params_from_numpy(cfg: ArchConfig, tree, device="cuda") -> Transformer:
     """The reference's parameter tree (``jax.tree.map(np.asarray,
-    params)``: per-slot leaves stacked over repetitions, and the dense
-    first layer under ``"first"``) as the port's :class:`Transformer`,
-    bit for bit."""
+    params)``: per-slot leaves stacked over repetitions, the dense first
+    layer under ``"first"``, the encoder's layers stacked under
+    ``"encoder"`` and its norm under ``"enc_norm"``) as the port's
+    :class:`Transformer`, bit for bit."""
     blocks = ([_block_from(cfg, block_kind(cfg, "attn"), False,
                            tree["first"], device)]
               if cfg.first_layer_dense else [])
@@ -559,8 +727,13 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda") -> Transformer:
         for j, (kind, moe) in enumerate(slot_kinds(cfg)):
             blocks.append(_block_from(cfg, block_kind(cfg, kind), moe,
                                       _rep(tree["slots"][j], r), device))
+    encoder = [_block_from(cfg, block_kind(cfg, "attn"), False,
+                           _rep(tree["encoder"], r), device)
+               for r in range(cfg.encoder_layers)]
     return Transformer(cfg, _from_numpy(tree["embed"], device), blocks,
-                       _norm_from(cfg, tree["final_norm"], device))
+                       _norm_from(cfg, tree["final_norm"], device), encoder,
+                       _norm_from(cfg, tree["enc_norm"], device)
+                       if encoder else None)
 
 
 def params_to_numpy(model: Transformer, bf16_dtype=None):
@@ -577,6 +750,9 @@ def params_to_numpy(model: Transformer, bf16_dtype=None):
         p = {"norm1": _norm_to(b.norm1, bf16_dtype),
              "mixer": {KINDS[b.kind].mixer_key: _tree_to(dict(b.mixer),
                                                          bf16_dtype)}}
+        if b.cross is not None:
+            p["mixer"]["cross"] = _tree_to(dict(b.cross), bf16_dtype)
+            p["mixer"]["norm_c"] = _norm_to(b.norm_c, bf16_dtype)
         if b.ffn is not None:
             p["norm2"] = _norm_to(b.norm2, bf16_dtype)
             p["ffn"] = _tree_to(b.ffn.tree() if isinstance(b.ffn, MoEFFN)
@@ -592,6 +768,9 @@ def params_to_numpy(model: Transformer, bf16_dtype=None):
     out["slots"] = [stacked([one(blocks[r * n + j])
                              for r in range(n_scan_reps(cfg))])
                     for j in range(n)]
+    if cfg.encoder_layers:
+        out["encoder"] = stacked([one(b) for b in model.encoder])
+        out["enc_norm"] = _norm_to(model.enc_norm, bf16_dtype)
     return out
 
 
@@ -602,8 +781,10 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     attention slot, ``{"kv": {"c_kv", "k_rope"}}`` (leaves ``(reps, B, S,
     kv_lora)`` and ``(reps, B, S, rope)``) for an MLA one and
     ``{"mamba": {"conv", "ssm"}}`` (leaves ``(reps, B, K-1, d_inner)`` and
-    ``(reps, B, d_inner, N)``) for a Mamba slot, and the dense first
-    layer's ``{"kv": ...}`` under ``"first"``."""
+    ``(reps, B, d_inner, N)``) for a Mamba slot, the dense first layer's
+    ``{"kv": ...}`` under ``"first"``, and with memory K/V the
+    reference's ``"memory_kv"``: per slot ``{"k", "v"}`` (leaves ``(reps,
+    B, M, Hkv, D)``) for a cross slot, ``{}`` for the others."""
     reps = n_scan_reps(cfg)
     where = cache_slots(cfg)
     n_prefix = 1 if cfg.first_layer_dense else 0
@@ -619,4 +800,14 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
                      for j, kind in enumerate(cfg.pattern)]}
     if cfg.first_layer_dense:
         out["first"] = layer("attn", where[0][1])
+    if "memory_k" in caches:
+        # the cross layers in order are rep-major over the pattern's
+        # cross slots
+        slots = [j for j, kind in enumerate(cfg.pattern) if kind == "cross"]
+        out["memory_kv"] = [
+            {name: _to_numpy(caches[f"memory_{name}"][
+                [r * len(slots) + slots.index(j) for r in range(reps)]],
+                bf16_dtype) for name in ("k", "v")}
+            if kind == "cross" else {}
+            for j, kind in enumerate(cfg.pattern)]
     return out

@@ -360,3 +360,81 @@ def test_cuda_flash_kernel_above_head_dim_128(b, hq, hkv, s, sk, d, causal,
     want = fref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert rel_err(to_np(got), to_np(want)) < tol(dt)
+
+
+# --------------------------------------------------------------------- #
+# cross-attention: not causal over a memory, every decode length M
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,sk,blk", [(9, 37, 16), (40, 37, 16),
+                                      (16, 161, 64)])
+def test_flash_not_causal_over_a_ragged_memory(s, sk, blk, dt):
+    """Cross-attention's prefill: S queries over a memory of Sk rows that
+    the reference's block does not divide (it pads and masks the tail),
+    S below and above Sk, through (B, S, H, D) / (B, M, Hkv, D) views."""
+    rng = np.random.default_rng(s + sk)
+    q = rng.standard_normal((2, s, 8, 16))
+    k, v = (rng.standard_normal((2, sk, 2, 16)) for _ in range(2))
+    jq, tq = both(q, dt)
+    (jk, tk), (jv, tv) = both(k, dt), both(v, dt)
+    want = attention_chunked(jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
+                             jv.transpose(0, 2, 1, 3), causal=False,
+                             block_k=blk)
+    got = fops.attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                         tv.transpose(1, 2), causal=False)
+    assert rel_err(to_np(got), want) < tol(dt)
+
+
+#: the two cross-attention models' kernel shapes (llama-3.2-vision-11b:
+#: 32 over 8 heads of 128, a 1601-row memory; seamless-m4t-medium: 16
+#: heads of 64, G 1, 1024 frames): flash (self causal, cross and encoder
+#: not causal, cross as the model's strided views), Sk about 1601's 64-
+#: and 128-row tiles, and not causal with S > Sk
+CROSS_FLASH = [(8, 32, 8, 512, 1601, 128, False, True),
+               (8, 16, 16, 1024, 1024, 64, False, False),
+               (8, 16, 16, 512, 512, 64, True, False),
+               (8, 16, 16, 512, 1024, 64, False, True),
+               (2, 8, 2, 128, 1535, 128, False, False),
+               (2, 8, 2, 128, 1537, 128, False, True),
+               (2, 8, 2, 128, 1599, 128, False, False),
+               (2, 8, 2, 128, 1602, 128, False, True),
+               (2, 8, 2, 300, 129, 128, False, False)]
+#: decode over a memory, every length M, at G 4 and G 1
+CROSS_DECODE = [(8, 32, 8, 1601, 128), (8, 16, 16, 1024, 64),
+                (8, 16, 16, 1601, 64), (8, 32, 8, 1024, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cuda_kernels_at_the_cross_attention_shapes(dt):
+    """Run on a card only: both kernels against their plain versions at
+    the cross-attention models' shapes (``chip_smoke.py`` phase 7e)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels have no CPU "
+                    "mode (their plain versions are held to the reference "
+                    "above and in tests/test_torch_cross.py)")
+    rng = np.random.default_rng(21)
+    td = DTYPES[dt][1]
+
+    def dev(shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(
+            device="cuda", dtype=td)
+    for b, hq, hkv, s, sk, d, causal, views in CROSS_FLASH:
+        if views:
+            q = dev((b, s, hq, d)).transpose(1, 2)
+            k, v = (dev((b, sk, hkv, d)).transpose(1, 2) for _ in range(2))
+        else:
+            q, k, v = dev((b, hq, s, d)), dev((b, hkv, sk, d)), dev(
+                (b, hkv, sk, d))
+        got = fops.attention(q, k, v, causal=causal)
+        want = fref.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert rel_err(to_np(got), to_np(want)) < tol(dt)
+    for b, hq, hkv, m, d in CROSS_DECODE:
+        q = dev((b, hq, d))
+        k, v = dev((b, m, hkv, d)), dev((b, m, hkv, d))
+        lengths = torch.full((b,), m, dtype=torch.int32, device="cuda")
+        got = dops.decode_attention(q, k, v, lengths)
+        want = dref.decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        assert rel_err(to_np(got), to_np(want)) < tol(dt)

@@ -102,11 +102,8 @@ def test_param_count_on_meta_equals_the_reference(name):
 
 
 def _still_unported(name: str) -> bool:
-    """mLSTM/sLSTM (item 11b), cross-attention and the encoder (11c): what
-    the port does not serve yet."""
-    cfg = get_arch(name)
-    return bool(cfg.encoder_layers
-                or {"mlstm", "slstm", "cross"} & set(cfg.pattern))
+    """mLSTM/sLSTM (item 11b): what the port does not serve yet."""
+    return bool({"mlstm", "slstm"} & set(get_arch(name).pattern))
 
 
 @pytest.mark.parametrize("name", [a for a in list_archs()
