@@ -7,10 +7,11 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``);
 run from a checkout, since it imports ``src/repro_torch``.  Phases, each
 of which stops the run with a non-zero exit when it fails:
 
-1. build the five kernels from ``src/`` (``zns_alloc``, flash attention,
-   decode attention, ``ssm_scan``, ``page_clock``), one ``nvcc`` each, all
-   started together, and print each build time; beside them, ``ptxas -v``
-   of all five sources (registers and spills of each kernel);
+1. build the seven kernels from ``src/`` (``zns_alloc``, flash
+   attention, decode attention, ``ssm_scan``, ``page_clock``,
+   ``mlstm_scan``, ``slstm_scan``), one ``nvcc`` each, all started
+   together, and print each build time; beside them, ``ptxas -v`` of all
+   seven sources (registers and spills of each kernel);
 2. hold the ``zns_alloc`` kernels to their plain PyTorch versions, bit
    for bit, on CUDA tensors: the row selection at the main path's zn540
    shapes and at random ragged shapes, the fused ALLOC and grow
@@ -249,7 +250,24 @@ then, with the deepseek-v2 cut freed, cross-attention and the encoder:
      ``memory_len`` at the 4k cell) and decoder prompts of 512 tokens, 31
      decode steps; ``flash_attention`` 36 in prefill (12 encoder + 12
      causal + 12 cross), ``decode_attention`` 24 x 31; prefill split into
-     its encoder and decoder spans; the encoder's flash shape timed too.
+     its encoder and decoder spans; the encoder's flash shape timed too;
+7f. the two xLSTM scans held to their plain versions on CUDA tensors, f32
+    and bf16: the served shapes (B 8, T 2048, H 4, P 384 for
+    ``mlstm_scan``, d 768 in 4 heads for ``slstm_scan``), T 1, 37, 129
+    and 2047 at B 1-8 and the reduced widths (P 32; d 64), q/k/v as
+    strided views of one projection, the gates as column views; each
+    kernel timed at the served shape beside its device time, plain
+    version and bound (no library call computes either recurrence);
+8g. ``serve.build`` and ``serve.generate`` for xlstm-125m as published
+    (12 layers, 3 x (mLSTM, mLSTM, mLSTM, sLSTM), d 768, no FFN;
+    145,044,480 parameters from seed 0): 8 prompts of 2048 tokens, 31
+    decode steps -- ``mlstm_scan`` 9 and ``slstm_scan`` 3 in prefill,
+    none in decode, no attention, ``ssm_scan``, ``zns_alloc`` or
+    ``page_clock`` launch;
+9g. the plain path (``ssm_impl="ref"``: the stepped recurrences),
+    teacher-forced with 8g's tokens: logits and caches held to 8g's;
+10g. a second timed serve run, one profiled prefill (each scan's device
+     time) and one profiled decode step (busy time, device events).
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
@@ -258,7 +276,8 @@ per kernel and path (``path``: ``paper_report``, ``kv_zn540`` and
 Pallas contract and phase 14's legacy ALLOCs for its row kernel,
 granite-3-8b, the Jamba cut, the llama4-scout cut and the deepseek-v2
 cut, llama-3.2-vision-11b and seamless-m4t-medium for the serving
-kernels, phase 14 for ``page_clock``), each with that
+kernels, phase 14 for ``page_clock``, xlstm-125m for the two xLSTM
+scans), each with that
 path's launches and the times at its shapes -- and ``{"ok": true,
 "device": {...}}``.
 """
@@ -331,6 +350,9 @@ ROUTE_FLIP_MARGIN = 1e-5
 #: tokens, 32 tokens out, the memory at the reference's memory_len (the
 #: 4k cell for the audio model's frames)
 CROSS_BATCH, CROSS_PROMPT, CROSS_TOKENS = 8, 512, 32
+#: phases 8g-10g: xlstm-125m as published
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_TOKENS = 8, 2048, 32
+XLSTM_PARAMS = 145_044_480
 CROSS_CELL = "train_4k"
 VISION_PARAMS = 9_585_397_760
 SEAMLESS_PARAMS = 614_854_656
@@ -2148,10 +2170,12 @@ def check_serve(torch, run, counts, kernels, n_params, want_params) -> None:
     n_attn = kinds.count("attn") + 2 * n_cross  # a cross layer attends twice
     steps = run["tokens"].shape[1] - 1
     want = {"prefill": {"flash_attention": n_attn + cfg.encoder_layers,
-                        "decode_attention": 0, "ssm_scan": n_mamba},
+                        "decode_attention": 0, "ssm_scan": n_mamba,
+                        "mlstm_scan": kinds.count("mlstm"),
+                        "slstm_scan": kinds.count("slstm")},
             "decode": {"flash_attention": 0,
                        "decode_attention": 0 if cfg.mla else n_attn * steps,
-                       "ssm_scan": 0}}
+                       "ssm_scan": 0, "mlstm_scan": 0, "slstm_scan": 0}}
     check(n_params == want_params,
           f"{cfg.name} has {n_params} parameters, not {want_params}")
     check(run["launches"] == want,
@@ -3026,6 +3050,266 @@ def phase_cross_serve(torch, serve, MDL, shapes, cfg, kernels, others, *,
     return run
 
 
+# --------------------------------------------------------------------- #
+# phases 7f-10g: xLSTM
+# --------------------------------------------------------------------- #
+def mlstm_inputs(torch, gen, b, s, h, p, dtype, *, strided=False):
+    """q, k, v ``(B, S, H, P)`` ~ N(0, 1) (k scaled by 1/sqrt(P), as the
+    layer scales it) -- with ``strided``, views of one ``(B, S, 3, H, P)``
+    tensor -- and the log gates: li a column view of one ``(B, S, 2H)``
+    f32 tensor ~ N(0, 2^2), as the layer's split gives it, lf the
+    log-sigmoid of N(3, 1) (forget gates near 1)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if strided:
+        qkv = randn(b, s, 3, h, p)
+        qkv[:, :, 1] *= p ** -0.5
+        q, k, v = qkv.to(dtype).unbind(2)
+    else:
+        q, v = randn(b, s, h, p).to(dtype), randn(b, s, h, p).to(dtype)
+        k = (randn(b, s, h, p) * p ** -0.5).to(dtype)
+    gates = randn(b, s, 2 * h) * 2
+    li = gates[..., :h]
+    lf = torch.nn.functional.logsigmoid(randn(b, s, h) + 3)
+    return q, k, v, li, lf
+
+
+def slstm_inputs(torch, gen, b, s, d, h, dtype, *, strided=False):
+    """pre_x ``(B, S, 4d)`` ~ N(0, 1) -- with ``strided``, a column view
+    of a wider row -- and r_rec ``(H, ph, 4 ph)`` ~ N(0, 1/ph), as
+    ``slstm_init`` draws it."""
+    ph = d // h
+    gen_x = torch.randn((b, s, 4 * d + (8 if strided else 0)),
+                        generator=gen, device="cuda").to(dtype)
+    pre = gen_x[..., 8:] if strided else gen_x
+    r = (torch.randn((h, ph, 4 * ph), generator=gen, device="cuda")
+         * ph ** -0.5).to(dtype)
+    return pre, r
+
+
+def xlstm_cases() -> dict:
+    """Each scan's cases: the served shape, then T 1, 37, 129 and 2047 at
+    B 1-8 and the reduced widths, strided inputs, and a second width."""
+    ragged = [(1, 1), (3, 37), (8, 129), (2, 2047)]
+    mlstm = [(8, 2048, 4, 384, False)]
+    mlstm += [(b, t, 4, 32, i % 2 == 1) for i, (b, t) in enumerate(ragged)]
+    mlstm += [(2, 129, 4, 384, True), (3, 40, 2, 512, False),
+              (2, 33, 4, 96, True)]
+    slstm = [(8, 2048, 768, 4, False)]
+    slstm += [(b, t, 64, 4, i % 2 == 1) for i, (b, t) in enumerate(ragged)]
+    slstm += [(2, 129, 768, 4, True), (3, 40, 96, 3, False)]
+    return {"mlstm_scan": mlstm, "slstm_scan": slstm}
+
+
+def phase_xlstm_scans(torch, np, mops, slops) -> dict:
+    """Both scans against their plain versions on the same CUDA tensors,
+    f32 and bf16; returns each kernel's worst max-abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cases = xlstm_cases()
+    worst = {"mlstm_scan": 0.0, "slstm_scan": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[str(dtype).split(".")[1]]
+        for b, t, h, p, strided in cases["mlstm_scan"]:
+            args = mlstm_inputs(torch, gen, b, t, h, p, dtype,
+                                strided=strided)
+            before = mops.launches
+            got = mops.mlstm_scan(*args)
+            check(mops.launches == before + 1,
+                  "mlstm_scan launch not counted")
+            want = mops.mlstm_scan(*args, impl="ref")
+            torch.cuda.synchronize()
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and tuple(got.shape) == (b, t, h, p)
+                  and err <= tol,
+                  f"mlstm_scan {dtype} {(b, t, h, p)} strided {strided}: "
+                  f"rel err {err} > {tol}")
+            worst["mlstm_scan"] = max(worst["mlstm_scan"], diff)
+            n += 1
+            del args, got, want
+        for b, t, d, h, strided in cases["slstm_scan"]:
+            args = slstm_inputs(torch, gen, b, t, d, h, dtype,
+                                strided=strided)
+            before = slops.launches
+            got = slops.slstm_scan(*args)
+            check(slops.launches == before + 1,
+                  "slstm_scan launch not counted")
+            want = slops.slstm_scan(*args, impl="ref")
+            torch.cuda.synchronize()
+            err, diff = rel_err(torch, got, want)
+            check(got.dtype == dtype and tuple(got.shape) == (b, t, d)
+                  and err <= tol,
+                  f"slstm_scan {dtype} {(b, t, d, h)} strided {strided}: "
+                  f"rel err {err} > {tol}")
+            worst["slstm_scan"] = max(worst["slstm_scan"], diff)
+            n += 1
+            del args, got, want
+    log(f"phase 7f: mlstm_scan and slstm_scan == plain versions on {n} "
+        f"cases (f32 rel err <= {KERNEL_TOL['float32']}, bf16 <= "
+        f"{KERNEL_TOL['bfloat16']}); max_abs_err {worst}")
+    return worst
+
+
+def xlstm_timing(torch, mops, slops, usage) -> dict:
+    """CUDA-event times of both scans at xlstm-125m's served prefill shape
+    (bf16), their device time per launch, the plain versions' times and
+    the bounds from this run's inputs: ``mlstm_scan``'s 5 f32 operations
+    per state entry and step (``fp C``, ``(ip v) k``, the add, and ``C
+    q``'s multiply-add) on the non-tensor-core rate; ``slstm_scan``'s
+    recurrent product (bf16 inputs) on the bf16 rate, and its bytes.  No
+    PyTorch call computes either recurrence: no library time."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    b, t, h = XLSTM_BATCH, XLSTM_PROMPT, 4
+    p, d = 384, 768
+    out = {}
+    margs = mlstm_inputs(torch, gen, b, t, h, p, torch.bfloat16)
+    sargs = slstm_inputs(torch, gen, b, t, d, h, torch.bfloat16)
+    for name, mod, fn, args, kname in (
+            ("mlstm_scan", mops, mops.mlstm_scan, margs,
+             "mlstm_scan_kernel"),
+            ("slstm_scan", slops, slops.slstm_scan, sargs,
+             "slstm_scan_kernel")):
+        before = mod.launches
+        ms = cuda_ms(torch, lambda: fn(*args), iters=5)
+        dev = device_us(torch, lambda: fn(*args), kname, reps=3)
+        mod.launches = before                  # timing launches not counted
+        # one call: phase 7f has run the plain version at this shape
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args, impl="ref")
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if name == "mlstm_scan":
+            bytes_moved = 4 * 2 * b * t * h * p + 2 * 4 * b * t * h
+            flops = b * h * t * (5 * p * p + 6 * p)
+            ops_ms = flops / OPS_PER_S * 1e3
+            f32_ms = ops_ms
+        else:
+            ph = d // h
+            bytes_moved = 2 * (b * t * 4 * d + b * t * d + h * ph * 4 * ph)
+            flops = 2 * h * ph * 4 * ph * b * t
+            ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+            f32_ms = flops / OPS_PER_S * 1e3
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        res = [u for m, u in usage[name].items() if "bfloat16" in m]
+        out[name] = {"ms": ms, "device_us": dev, "plain_ms": plain_ms,
+                     "library_ms": None,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations",
+                     "bytes": bytes_moved, "flops": flops,
+                     "f32_pipes_ms": f32_ms}
+        t_ = out[name]
+        log(f"phase 10g: {name} at xlstm-125m's prefill shape ({b} x {t}, "
+            f"{'H 4, P 384' if name == 'mlstm_scan' else 'd 768, H 4'}, "
+            f"bf16): kernel {ms:.6f} ms ({t_['bound_ms'] / ms:.4f} of its "
+            f"bound; device {dev} us per launch), plain {plain_ms:.6f} ms, "
+            f"no library call; bound {t_['bound_ms']:.6f} ms "
+            f"({t_['bound_by']}: {bytes_moved} bytes = {bytes_ms:.6f} ms, "
+            f"{flops} flop = {ops_ms:.6f} ms; on the f32 pipes "
+            f"{f32_ms:.6f} ms); bf16 kernel resources {res}")
+    del margs, sargs
+    return out
+
+
+def phase_xlstm_serve(torch, serve, cfg, kernels, others) -> dict:
+    """xlstm-125m as published through ``serve.build`` and
+    ``serve.generate``, weights from seed 0 on the card, every launch
+    count zeroed just before the run and read just after."""
+    torch.cuda.reset_peak_memory_stats()
+    model = serve.build(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in model.parameters())
+    prompts = torch.from_numpy(serve.make_prompts(
+        cfg, XLSTM_BATCH, XLSTM_PROMPT, seed=0)).to("cuda")
+    for mod in list(kernels.values()) + list(others.values()):
+        mod.reset_launches()
+    run = serve.generate(model, cfg, prompts, XLSTM_TOKENS)
+    counts = read_counts(kernels)
+    other = {"zns_alloc": sum(others["zns_alloc"].counts.values()),
+             "page_clock": others["page_clock"].launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run = dict(run, cfg=cfg, model=model, prompts=prompts,
+               n_params=n_params, counts=counts)
+    check_serve(torch, run, counts, kernels, n_params, XLSTM_PARAMS)
+    check(other == {"zns_alloc": 0, "page_clock": 0},
+          f"{cfg.name}: launched {other}")
+    check(run["launches"]["prefill"]["mlstm_scan"] == 9
+          and run["launches"]["prefill"]["slstm_scan"] == 3,
+          f"{cfg.name}: prefill launches {run['launches']['prefill']}")
+    check(tuple(run["tokens"].shape) == (XLSTM_BATCH, XLSTM_TOKENS),
+          "xlstm token shape")
+    # prefill left the states as made; decode then moved them
+    for name in ("mlstm_c", "mlstm_n", "slstm_c", "slstm_h"):
+        check(bool(run["caches"][name].abs().sum() > 0)
+              and bool(torch.isfinite(run["caches"][name]).all()),
+              f"{cfg.name}: decode left {name} at zero or not finite")
+    steps = XLSTM_TOKENS - 1
+    log(f"phase 8g: served {cfg.name} as published ({n_params} "
+        f"parameters, {cfg.n_layers} layers: {cfg.layer_kinds()}, d_ff "
+        f"{cfg.d_ff}) on cuda: {XLSTM_BATCH} x {XLSTM_PROMPT} prompt, "
+        f"{steps} decode steps; launches {counts} (prefill "
+        f"{run['launches']['prefill']}, decode {run['launches']['decode']}),"
+        f" {other}; prefill {run['prefill_s']:.6f} s, decode "
+        f"{run['decode_s'] / steps * 1e3:.6f} ms/step (first run); peak "
+        f"device memory {peak_gb:.2f} GB "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); first row "
+        f"{run['tokens'][0, :12].tolist()}")
+    return dict(run, peak_gb=peak_gb)
+
+
+def log_xlstm_serve_timing(torch, serve, MDL, TT, run) -> dict:
+    """A second timed serve run, one profiled prefill (each scan's launches
+    and device time, and the card's busy share) and one profiled decode
+    step; returns each scan's device µs a launch in the profiled prefill
+    (None where the profiler saw none)."""
+    cfg = run["cfg"]
+    timed = serve.generate(run["model"], cfg, run["prompts"],
+                           run["tokens"].shape[1])
+    steps = run["tokens"].shape[1] - 1
+    b = run["prompts"].shape[0]
+    log(f"phase 10g: serve {cfg.name}, second run: prefill "
+        f"{timed['prefill_s']:.6f} s = "
+        f"{run['prompts'].numel() / timed['prefill_s']:.1f} tokens/s; "
+        f"decode {timed['decode_s'] / steps * 1e3:.6f} ms/step ({steps} "
+        f"steps of {b} sequences); first run prefill "
+        f"{run['prefill_s']:.6f} s, decode "
+        f"{run['decode_s'] / steps * 1e3:.6f} ms/step; tokens equal to "
+        f"the first run: {bool(torch.equal(timed['tokens'], run['tokens']))}")
+    del timed
+    prefill = MDL.make_prefill_step(cfg)
+    caches = TT.init_caches(cfg, b, run["prompts"].shape[1] + 1,
+                            device="cuda")
+    device = {}
+    for mark in ("mlstm_scan_kernel", "slstm_scan_kernel"):
+        prof = profile_region(torch, lambda: prefill(run["model"],
+                                                     run["prompts"], caches),
+                              mark)
+        device[mark.replace("_kernel", "")] = prof["kernel_us"]
+        if prof["device_events"]:
+            log(f"phase 10g: profiled one {cfg.name} prefill: wall "
+                f"{prof['wall_us']:.1f} us, device busy "
+                f"{prof['busy_us']:.1f} us "
+                f"({prof['busy_us'] / prof['wall_us']:.4f} of wall) over "
+                f"{prof['device_events']} device events; {mark} "
+                f"{prof['kernel_launches']} launches, {prof['kernel_us']} us "
+                f"device time each")
+        else:
+            log("phase 10g: profiler recorded no device events: prefill "
+                "busy share not measured")
+    prof = profile_decode_step(torch, MDL, run)
+    if prof["device_events"]:
+        log(f"phase 10g: profiled one {cfg.name} decode step: wall "
+            f"{prof['wall_us']:.1f} us, device busy {prof['busy_us']:.1f} "
+            f"us ({prof['busy_us'] / prof['wall_us']:.4f} of wall) over "
+            f"{prof['device_events']} device events")
+    else:
+        log("phase 10g: profiler recorded no device events: decode busy "
+            "share not measured")
+    return device
+
+
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3049,6 +3333,7 @@ def main() -> int:
     from repro_torch.configs.jamba15_large_398b import ONE_CHIP
     from repro_torch.configs.llama32_vision_11b import CONFIG as VISION
     from repro_torch.configs.seamless_m4t_medium import CONFIG as SEAMLESS
+    from repro_torch.configs.xlstm_125m import CONFIG as XLSTM
     from repro_torch.configs.llama4_scout_17b_a16e import (
         ONE_CHIP as LLAMA4_ONE_CHIP)
     from repro_torch.core import allocator, engine, headline, workloads
@@ -3057,8 +3342,10 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.mlstm_scan import ops as mops
     from repro_torch.kernels.page_clock import ops as pc_ops
     from repro_torch.kernels.page_clock import ref as pc_ref
+    from repro_torch.kernels.slstm_scan import ops as slops
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.kernels.ssm_scan import ref as sref
     from repro_torch.kernels.zns_alloc import ops, ref
@@ -3080,7 +3367,8 @@ def main() -> int:
         return _build.build(source), time.perf_counter() - t0
     sources = {"zns_alloc": ops.SOURCE, "flash_attention": fops.SOURCE,
                "decode_attention": dops.SOURCE, "ssm_scan": sops.SOURCE,
-               "page_clock": pc_ops.SOURCE}
+               "page_clock": pc_ops.SOURCE, "mlstm_scan": mops.SOURCE,
+               "slstm_scan": slops.SOURCE}
     with ThreadPoolExecutor(2 * len(sources)) as pool:
         usage = pool.map(_build.resource_usage, sources.values())
         for lib, secs in pool.map(timed_build, sources.values()):
@@ -3271,7 +3559,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"flash_attention": fops, "decode_attention": dops,
-               "ssm_scan": sops}
+               "ssm_scan": sops, "mlstm_scan": mops, "slstm_scan": slops}
     run = phase_serve(torch, serve, kernels)
 
     # 9. the plain attention path, teacher-forced, against it
@@ -3451,6 +3739,31 @@ def main() -> int:
     del run
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 7f. the xLSTM scans vs their plain versions
+    t0 = time.perf_counter()
+    xlstm_err = phase_xlstm_scans(torch, np, mops, slops)
+    log(f"phase 7f took {time.perf_counter() - t0:.1f} s")
+
+    # 8g. xlstm-125m as published through both scans
+    t0 = time.perf_counter()
+    run = phase_xlstm_serve(torch, serve, XLSTM, kernels, others)
+
+    # 9g. the stepped plain recurrences, teacher-forced, against it
+    phase_serve_ref(torch, serve, run, "9g")
+
+    # 10g. the scans at the served shape, a second serve run, profiled
+    # prefill and decode
+    xlstm_t = xlstm_timing(torch, mops, slops, usage)
+    prefill_us = log_xlstm_serve_timing(torch, serve, MDL, TT, run)
+    for name, t in xlstm_t.items():     # where the timing's profile is empty
+        if t["device_us"] is None:
+            t["device_us"] = prefill_us[name]
+    xlstm = (XLSTM.name, run["counts"], xlstm_t)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phases 8g-10g took {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]
@@ -3462,12 +3775,18 @@ def main() -> int:
             "src/repro/kernels/flash_attention/flash_attention.py:36",
         "decode_attention":
             "src/repro/kernels/decode_attention/decode_attention.py:30",
-        "ssm_scan": "src/repro/kernels/ssm_scan/ssm_scan.py:36"}
+        "ssm_scan": "src/repro/kernels/ssm_scan/ssm_scan.py:36",
+        "mlstm_scan": "src/repro/models/xlstm.py:95 (mlstm_forward's "
+                      "lax.scan through layers.chunked_remat_scan; no "
+                      "Pallas counterpart)",
+        "slstm_scan": "src/repro/models/xlstm.py:188 (slstm_forward's "
+                      "lax.scan through layers.chunked_remat_scan; no "
+                      "Pallas counterpart)"}
     # one entry per kernel and serving path, each with that path's
     # launches and the times at that path's shapes
     paths = [granite + (errs,), jamba + (errs,), llama4 + (errs,),
              deepseek + (mla_errs,), vision + (cross_errs,),
-             seamless + (cross_errs,)]
+             seamless + (cross_errs,), xlstm + (xlstm_err,)]
     serve_entries = [{
         "name": name,
         "path": path,
@@ -3481,6 +3800,8 @@ def main() -> int:
         "bound_ms": timed[name]["bound_ms"],
         "bound_by": timed[name]["bound_by"],
         "library_ms": timed[name]["library_ms"],
+        **({"device_us": timed[name]["device_us"]}
+           if "device_us" in timed[name] else {}),
     } for path, counts, timed, path_errs in paths for name in timed]
     log(gpu_name_and_limit())
     zns = "src/repro_torch/kernels/zns_alloc/csrc/zns_alloc.cu"

@@ -3,8 +3,9 @@ the :mod:`verifier` predicts per-op legality (bit-identical to the
 engine's ``trace.ok``) plus derived reports without dispatching
 anything; the :mod:`sanitizer` checks
 :class:`~repro_torch.core.engine.DeviceState` invariants between
-dispatches.  Pure numpy on host values.  (``repro.check.lint`` is the
-JAX package's AST lint and has no counterpart here.)
+dispatches.  Pure numpy on host values.  :mod:`.lint` is the port's
+AST lint (``python -m repro_torch.check.lint``), with the two rules of
+``repro.check.lint`` that mean something without JAX.
 """
 
 from repro_torch.check.sanitizer import (SanitizerError, assert_state,

@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-3-8b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-125m    # on the card
 
 Parameters are drawn on ``--device`` from ``torch.Generator`` seeded with
 ``--seed``; prompts come from ``numpy.random.default_rng(seed)`` as in the
@@ -10,10 +11,12 @@ reference, and for a VLM or audio model (``family`` ``vlm`` / ``audio``)
 so does the stub frontend's memory, 16 rows of ``N(0, 0.1^2)`` in bf16
 drawn right after the prompts.  Prefill runs the flash-attention kernel
 in each attention layer (self-attention, cross-attention over the memory,
-the encoder's layers) and the selective-scan kernel in each Mamba layer,
-and every decode step the decode-attention kernel in each self- and
-cross-attention; :func:`generate` with ``attn_impl="ref"`` /
-``ssm_impl="ref"`` runs their plain versions instead.  :func:`main`
+the encoder's layers), the selective-scan kernel in each Mamba layer and
+the mLSTM / sLSTM scan kernels in each xLSTM layer, and every decode step
+the decode-attention kernel in each self- and cross-attention;
+:func:`generate` with ``attn_impl="ref"`` /
+``ssm_impl="ref"`` runs their plain versions instead (``ssm_impl``
+covers all three recurrences).  Decode runs no scan.  :func:`main`
 returns the run (tokens, logits, caches, timings and kernel launches per
 phase) so callers can check it.
 """
@@ -32,6 +35,8 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import model as MDL
 from repro_torch.models import transformer as T
@@ -76,7 +81,9 @@ def _sync(device: torch.device) -> None:
 def _launches() -> dict:
     return {"flash_attention": flash_ops.launches,
             "decode_attention": decode_ops.launches,
-            "ssm_scan": ssm_ops.launches}
+            "ssm_scan": ssm_ops.launches,
+            "mlstm_scan": mlstm_ops.launches,
+            "slstm_scan": slstm_ops.launches}
 
 
 def _delta(after: dict, before: dict) -> dict:

@@ -12,7 +12,7 @@ device they only allocate shapes (for parameter counts).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -98,6 +98,15 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1 / (1 + torch.exp(-x))
 
 
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``, ``-softplus(-x)``, in the form its
+    compiled HLO computes: ``-(max(-x, 0) + log1p(exp(-|x|)))`` (a NaN
+    passes through), in x's dtype (the xLSTM gates call it in f32)."""
+    neg = -x
+    sp = torch.clamp(neg, min=0) + torch.log1p(torch.exp(-torch.abs(neg)))
+    return -torch.where(neg != neg, neg, sp)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` rounded op by op, like ``jax.nn.silu``."""
     return x * sigmoid(x)
@@ -146,3 +155,29 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Tied unembedding, ``x @ table.T`` accumulated and returned in f32
     (a bf16 ``matmul`` would round the logits to bf16)."""
     return x.float() @ table.float().t()
+
+
+# --------------------------------------------------------------------- #
+# scans over time
+# --------------------------------------------------------------------- #
+def chunked_remat_scan(step: Callable, carry, xs, chunk: int
+                       ) -> Tuple[object, object]:
+    """The forward of the reference's ``chunked_remat_scan``: ``step(carry,
+    x_t) -> (carry, y_t)`` stepped over the leading (time) axis of ``xs``
+    (a tensor or a tuple of tensors), returning the last carry and the
+    ``y_t`` stacked on a new leading axis (a tensor or a tuple, as
+    ``step`` returns them) -- what ``lax.scan`` gives.  The reference's
+    time chunks (``chunk`` steps each when ``T % chunk == 0`` and ``T >
+    chunk``) exist to rematerialise a chunk in the backward; they change
+    nothing in the forward, so ``chunk`` is taken and ignored here."""
+    del chunk
+    seq = xs if isinstance(xs, (tuple, list)) else (xs,)
+    ys = []
+    for t in range(seq[0].shape[0]):
+        x_t = tuple(a[t] for a in seq)
+        carry, y = step(carry, x_t if isinstance(xs, (tuple, list))
+                        else x_t[0])
+        ys.append(y)
+    if isinstance(ys[0], (tuple, list)):
+        return carry, tuple(torch.stack(c) for c in zip(*ys))
+    return carry, torch.stack(ys)

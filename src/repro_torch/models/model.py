@@ -3,12 +3,13 @@ half): the prefill and decode step functions, the parameter counts and
 the stub frontends' memory length.
 
 ``attn_impl`` and ``ssm_impl`` are ``"kernel"`` (the Hopper attention
-and selective-scan kernels on CUDA tensors, their plain versions on CPU
-tensors) or ``"ref"`` (the plain versions everywhere).  The two are
-separate knobs to mirror the reference's ``make_prefill_step(cfg,
-attn_impl, ssm_impl)``; every caller today sets them alike.  Decode runs no
-scan: a Mamba layer steps its state with plain torch, as the reference
-does.  Training (``loss_fn``, ``make_train_step``) waits
+kernels, and the selective-scan and mLSTM / sLSTM scan kernels, on CUDA
+tensors, their plain versions on CPU tensors) or ``"ref"`` (the plain
+versions everywhere).  The two are separate knobs to mirror the
+reference's ``make_prefill_step(cfg, attn_impl, ssm_impl)``; every
+caller today sets them alike.  Decode runs no
+scan: a Mamba or xLSTM layer steps its state with plain torch, as the
+reference does.  Training (``loss_fn``, ``make_train_step``) waits
 for ROADMAP Queue 1 item 12.
 """
 

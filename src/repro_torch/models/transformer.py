@@ -1,7 +1,7 @@
-"""Architecture assembly for serving: stacks of ``"attn"``, ``"cross"``
-and ``"mamba"`` blocks with dense or MoE FFNs, and the encoder of an
-encoder-decoder (the port of ``repro.models.transformer``'s serving
-path).
+"""Architecture assembly for serving: stacks of ``"attn"``, ``"cross"``,
+``"mamba"``, ``"mlstm"`` and ``"slstm"`` blocks with dense or MoE FFNs,
+and the encoder of an encoder-decoder (the port of
+``repro.models.transformer``'s serving path).
 
 The reference stacks parameters per pattern slot and runs
 ``jax.lax.scan`` over repetitions; the port holds one :class:`Block` per
@@ -15,18 +15,17 @@ between the two.
 
 Supported: ``"attn"`` (self-attention, or multi-head latent attention
 when ``cfg.mla``), ``"cross"`` (self-attention, ``norm_c``, then
-cross-attention over a memory) and ``"mamba"`` blocks, each with a dense
-FFN (SwiGLU or GELU, RMSNorm or LayerNorm), an MoE FFN (:class:`MoEFFN`,
-``models/moe.py``) on the layers ``cfg.is_moe_layer`` picks, or none;
+cross-attention over a memory), ``"mamba"``, ``"mlstm"`` and ``"slstm"``
+(``models/xlstm.py``) blocks, each with a dense FFN (SwiGLU or GELU,
+RMSNorm or LayerNorm), an MoE FFN (:class:`MoEFFN`, ``models/moe.py``)
+on the layers ``cfg.is_moe_layer`` picks, or none;
 the dense first layer; and with ``cfg.encoder_layers`` a bidirectional
 encoder of ``"attn"`` blocks (:func:`encode`) that turns the memory into
 the decoder's.  Each kind's mixer init, cache, prefill and decode, and
 its names in the reference's trees, are one entry of :data:`KINDS`;
 :func:`layer_plan` gives an ``"attn"`` layer of an MLA config the kind
 ``"mla"`` (the dense first layer too, as in the reference), while
-:func:`slot_kinds` keeps the reference's pattern names.  mLSTM/sLSTM
-blocks (item 11b) raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+:func:`slot_kinds` keeps the reference's pattern names.
 
 Caches hold the kinds' state side by side, each stacked over the
 layers of its kind (:func:`cache_slots` maps a layer to its kind and its
@@ -35,20 +34,27 @@ bf16 for the attention layers (the dense first layer's at index 0), the
 latent ``{"c_kv", "k_rope"}`` of shapes ``(n_mla, B, max_seq, kv_lora)``
 and ``(n_mla, B, max_seq, rope)`` in bf16 for the MLA layers, and
 ``{"conv", "ssm"}`` of shapes ``(n_mamba, B, K-1, d_inner)`` bf16 and
-``(n_mamba, B, d_inner, N)`` f32 for the Mamba layers; a dense model has
-only ``k`` and ``v``, one per layer.  A cross layer's self-attention K/V
-sit in the attention stack; with ``init_caches(memory_len=M)`` the cross
-layers' memory K/V are ``memory_k`` / ``memory_v`` of shape ``(n_cross,
-B, M, Hkv, D)`` in the projection's dtype (the reference's prefill
+``(n_mamba, B, d_inner, N)`` f32 for the Mamba layers, and the
+reference's ``{"c", "n", "m"}`` of the mLSTM layers and ``{"c", "n", "m",
+"h"}`` of the sLSTM layers under the names ``mlstm_c``, ... and
+``slstm_c``, ... -- ``(n_mlstm, B, H, P, P)``, ``(n_mlstm, B, H, P)``,
+``(n_mlstm, B, H)`` in f32, ``(n_slstm, B, d)`` f32 for ``c`` and ``n``,
+``(n_slstm, B, H)`` f32 and ``(n_slstm, B, d)`` bf16 for ``h``; a dense
+model has only ``k`` and ``v``, one per layer.  A cross layer's
+self-attention K/V sit in the attention stack; with
+``init_caches(memory_len=M)`` the cross layers' memory K/V are
+``memory_k`` / ``memory_v`` of shape ``(n_cross, B, M, Hkv, D)`` in the
+projection's dtype (the reference's prefill
 replaces its bf16 zeros with ``build_memory_kv``'s output, the same
 products its cross layers' prefill computes, so the port's cross layers
 write them as they attend), and ``memory_len`` ``(B,)`` int32 holds M
 for every sequence, the cross decode's lengths.  Prefill writes the KV,
 latent and memory caches in place and, like the reference, leaves the
-Mamba state as it was
+Mamba and xLSTM states as they were
 (``repro.models.transformer`` skips the terminal state: decode starts
-every Mamba layer from its cached state, zero after :func:`init_caches`).
-Decode writes the KV and Mamba caches in place.
+every Mamba and xLSTM layer from its cached state, zero after
+:func:`init_caches`).  Decode writes the KV and recurrent caches in
+place.
 
 Rounding follows the reference's compiled program: within a step of its
 layer scan a norm reads the residual stream's f32 sum (:func:`_add`),
@@ -71,19 +77,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-
-_QUEUE = "ROADMAP Queue 1 item 11"
+from repro_torch.models import xlstm as X
 
 
 # --------------------------------------------------------------------- #
-# what the port serves
+# the layer pattern
 # --------------------------------------------------------------------- #
 def _check_supported(cfg: ArchConfig) -> None:
     for kind in cfg.pattern:
-        if kind in ("mlstm", "slstm"):
-            raise NotImplementedError(
-                f"{cfg.name}: {kind} blocks (models/xlstm.py) are not "
-                f"ported yet ({_QUEUE}b)")
         if kind not in KINDS:
             raise ValueError(kind)
 
@@ -254,9 +255,9 @@ class MoEFFN(nn.Module):
 class Block(nn.Module):
     """One layer: a pre-norm mixer -- self-attention (``kind="attn"``),
     self-attention then a pre-norm (``norm_c``) cross-attention over the
-    memory (``kind="cross"``, its weights ``cross``), or the Mamba mixer
-    (``kind="mamba"``) -- and a dense FFN (a tree of tensors), an MoE FFN
-    or none."""
+    memory (``kind="cross"``, its weights ``cross``), the Mamba mixer
+    (``kind="mamba"``) or an xLSTM block (``"mlstm"``, ``"slstm"``) --
+    and a dense FFN (a tree of tensors), an MoE FFN or none."""
 
     def __init__(self, cfg: ArchConfig, kind: str, norm1: Norm,
                  mixer: Dict[str, torch.Tensor], norm2: Optional[Norm],
@@ -400,6 +401,43 @@ def _mla_decode(blk: Block, h, cache, pos, attn_impl):
     return MLA.mla_decode(blk.mixer, h, cache, pos, blk.cfg)[0]
 
 
+def _mlstm_init(generator, cfg: ArchConfig, device, dtype):
+    return X.mlstm_init(generator, cfg.d_model, cfg.n_heads, device=device,
+                        dtype=dtype)
+
+
+def _mlstm_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
+    return X.init_mlstm_cache(batch, cfg.d_model, cfg.n_heads,
+                              device=device)
+
+
+def _mlstm_prefill(blk: Block, h, cache, attn_impl, ssm_impl):
+    # the xLSTM caches are left as they were, as in the reference
+    return X.mlstm_forward(blk.mixer, h, blk.cfg.n_heads, impl=ssm_impl)
+
+
+def _mlstm_decode(blk: Block, h, cache, pos, attn_impl):
+    return X.mlstm_decode(blk.mixer, h, cache, blk.cfg.n_heads)[0]
+
+
+def _slstm_init(generator, cfg: ArchConfig, device, dtype):
+    return X.slstm_init(generator, cfg.d_model, cfg.n_heads, device=device,
+                        dtype=dtype)
+
+
+def _slstm_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
+    return X.init_slstm_cache(batch, cfg.d_model, cfg.n_heads,
+                              device=device)
+
+
+def _slstm_prefill(blk: Block, h, cache, attn_impl, ssm_impl):
+    return X.slstm_forward(blk.mixer, h, blk.cfg.n_heads, impl=ssm_impl)
+
+
+def _slstm_decode(blk: Block, h, cache, pos, attn_impl):
+    return X.slstm_decode(blk.mixer, h, cache, blk.cfg.n_heads)[0]
+
+
 @dataclass(frozen=True)
 class Kind:
     """Everything the stack knows of one block kind."""
@@ -411,6 +449,12 @@ class Kind:
     prefill: Callable   # (block, h, cache, attn_impl, ssm_impl) -> out
     decode: Callable    # (block, h, cache, pos, attn_impl) -> out
     stack: str          # the kind whose cache stack holds this one's
+    cache_prefix: str = ""   # before a cache name in the flat caches
+    cache_fill: Tuple[Tuple[str, float], ...] = ()   # non-zero starts
+
+    def flat(self, name: str) -> str:
+        """The caches' key of the reference's cache ``name``."""
+        return self.cache_prefix + name
 
 
 KINDS: Dict[str, Kind] = {
@@ -423,6 +467,12 @@ KINDS: Dict[str, Kind] = {
                   _mamba_cache, _mamba_prefill, _mamba_decode, "mamba"),
     "mla": Kind("self", "kv", ("c_kv", "k_rope"), _mla_init, _mla_cache,
                 _mla_prefill, _mla_decode, "mla"),
+    "mlstm": Kind("mlstm", "mlstm", ("c", "n", "m"), _mlstm_init,
+                  _mlstm_cache, _mlstm_prefill, _mlstm_decode, "mlstm",
+                  "mlstm_", (("m", X.M0),)),
+    "slstm": Kind("slstm", "slstm", ("c", "n", "m", "h"), _slstm_init,
+                  _slstm_cache, _slstm_prefill, _slstm_decode, "slstm",
+                  "slstm_", (("m", X.M0),)),
 }
 
 
@@ -513,8 +563,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
                 memory_len: int = 0,
                 memory_dtype: torch.dtype = torch.bfloat16,
                 device="cuda") -> Dict[str, torch.Tensor]:
-    """Zeroed caches, each stack's over the layers it holds (a layer's
-    shapes and dtypes read off its kind's cache on ``meta``); with
+    """Fresh caches, each stack's over the layers it holds (a layer's
+    shapes and dtypes read off its kind's cache on ``meta``), zero but
+    for a kind's ``cache_fill`` (the xLSTM stabilisers' -1e30); with
     ``memory_len`` and cross layers, the memory K/V in ``memory_dtype``
     (the memory projection's, ``memory @ W`` promoted) and their
     lengths."""
@@ -524,8 +575,10 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
     for name, kind in KINDS.items():
         n = stacks.count(name) if kind.stack == name else 0
         if n:
-            caches.update({c: torch.zeros((n,) + t.shape, dtype=t.dtype,
-                                          device=device)
+            fill = dict(kind.cache_fill)
+            caches.update({kind.flat(c): torch.full(
+                (n,) + t.shape, fill.get(c, 0), dtype=t.dtype,
+                device=device)
                            for c, t in kind.cache(cfg, batch, max_seq,
                                                   "meta").items()})
     n_cross = [kind for kind, _ in layer_plan(cfg)].count("cross")
@@ -543,7 +596,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
 def _layer_cache(caches: Dict[str, torch.Tensor], slot: Tuple[str, int]
                  ) -> Dict[str, torch.Tensor]:
     kind, j = slot
-    return {name: caches[name][j] for name in KINDS[kind].cache_names}
+    return {name: caches[KINDS[kind].flat(name)][j]
+            for name in KINDS[kind].cache_names}
 
 
 def _memory_caches(caches: Dict[str, torch.Tensor], cfg: ArchConfig
@@ -781,7 +835,10 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     attention slot, ``{"kv": {"c_kv", "k_rope"}}`` (leaves ``(reps, B, S,
     kv_lora)`` and ``(reps, B, S, rope)``) for an MLA one and
     ``{"mamba": {"conv", "ssm"}}`` (leaves ``(reps, B, K-1, d_inner)`` and
-    ``(reps, B, d_inner, N)``) for a Mamba slot, the dense first layer's
+    ``(reps, B, d_inner, N)``) for a Mamba slot, ``{"mlstm": {"c", "n",
+    "m"}}`` and ``{"slstm": {"c", "n", "m", "h"}}`` for the xLSTM slots
+    (leaves ``(reps, ...)`` of :func:`init_caches`' shapes), the dense
+    first layer's
     ``{"kv": ...}`` under ``"first"``, and with memory K/V the
     reference's ``"memory_kv"``: per slot ``{"k", "v"}`` (leaves ``(reps,
     B, M, Hkv, D)``) for a cross slot, ``{}`` for the others."""
@@ -791,9 +848,10 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
 
     def layer(kind, idx):
         kind = block_kind(cfg, kind)
-        return {KINDS[kind].cache_key: {
-            name: _to_numpy(caches[name][idx], bf16_dtype)
-            for name in KINDS[kind].cache_names}}
+        k = KINDS[kind]
+        return {k.cache_key: {
+            name: _to_numpy(caches[k.flat(name)][idx], bf16_dtype)
+            for name in k.cache_names}}
 
     out = {"slots": [layer(kind, [where[n_prefix + r * len(cfg.pattern)
                                         + j][1] for r in range(reps)])

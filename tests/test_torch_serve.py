@@ -101,18 +101,6 @@ def test_param_count_on_meta_equals_the_reference(name):
         assert TM.param_count(get_arch(name)) == 8_171_884_544
 
 
-def _still_unported(name: str) -> bool:
-    """mLSTM/sLSTM (item 11b): what the port does not serve yet."""
-    return bool({"mlstm", "slstm"} & set(get_arch(name).pattern))
-
-
-@pytest.mark.parametrize("name", [a for a in list_archs()
-                                  if _still_unported(a)])
-def test_unported_blocks_raise_naming_the_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(get_arch(name).reduced(), device="meta")
-
-
 # --------------------------------------------------------------------- #
 # layers one by one
 # --------------------------------------------------------------------- #
@@ -359,9 +347,9 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     # the CPU wrappers ran the plain versions: no kernel launch counted
     assert run["launches"] == {
         "prefill": {"flash_attention": 0, "decode_attention": 0,
-                    "ssm_scan": 0},
+                    "ssm_scan": 0, "mlstm_scan": 0, "slstm_scan": 0},
         "decode": {"flash_attention": 0, "decode_attention": 0,
-                   "ssm_scan": 0}}
+                   "ssm_scan": 0, "mlstm_scan": 0, "slstm_scan": 0}}
     # the plain attention path gives the same run on the CPU
     again = serve.generate(run["model"], run["cfg"], run["prompts"], 3,
                            attn_impl="ref")
