@@ -267,7 +267,31 @@ then, with the deepseek-v2 cut freed, cross-attention and the encoder:
 9g. the plain path (``ssm_impl="ref"``: the stepped recurrences),
     teacher-forced with 8g's tokens: logits and caches held to 8g's;
 10g. a second timed serve run, one profiled prefill (each scan's device
-     time) and one profiled decode step (busy time, device events).
+     time) and one profiled decode step (busy time, device events);
+15. training, which launches no kernel (the reference trains through
+    none: ``make_train_step``'s defaults are ``attn_impl="qchunk"`` and
+    ``ssm_impl="ref"``, plain PyTorch under autograd): 15a one
+    ``make_train_step`` step in f32 on the card and on the CPU from the
+    same parameters (drawn on the CPU from seed 0) and ``SyntheticLM``
+    batch, for phi3-mini-3.8b cut to depth 2 (B 1, S 256) and xlstm-125m
+    cut to one repetition, depth 4 (B 2, S 128): loss, aux and gradient
+    norm at rel 1e-5, each gradient leaf at 1e-4 (TF32 off); 15b
+    phi3-mini-3.8b as published (3,723,168,768 parameters, bf16, f32
+    AdamW state at the reference's defaults, remat, ``qchunk``; B 4 x S
+    2048): a warm-up step, three
+    timed steps (ms a step, tokens/s, the optimizer's share, peak
+    memory, 6·N·tokens against the dense bf16 peak), losses finite and
+    falling, and one profiled step (busy time, the kernels taking most
+    of it); 15c xlstm-125m as published through
+    ``launch.train.main --steps 6 --batch 8 --seq 128 --ckpt-every 3``,
+    then ``--fail-at 4`` from a fresh directory and its restart, which
+    restores step 2 and must repeat the first run's losses for steps 3-5
+    bit for bit; the checkpoint store's ZNS telemetry, bytes and
+    seconds a save, ms a step; 15d no kernel launches in a train step of
+    15a-15c (``zns_alloc`` launches of the checkpoint store's simulated
+    device aside), and a flash-attention call on CUDA tensors that
+    require grad raises under grad mode and launches once under
+    ``torch.no_grad()``.
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
@@ -286,6 +310,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3310,6 +3335,380 @@ def log_xlstm_serve_timing(torch, serve, MDL, TT, run) -> dict:
     return device
 
 
+# --------------------------------------------------------------------- #
+# phase 15: training
+# --------------------------------------------------------------------- #
+PHI3_PARAMS = 3_723_168_768
+#: 15b: one card's share of a data-parallel step, 8,192 tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 3
+#: 15a: (arch, depth, batch, seq) of the f32 card-vs-CPU step
+TRAIN_CUTS = (("phi3-mini-3.8b", 2, 1, 256), ("xlstm-125m", 4, 2, 128))
+TRAIN_TOL = {"scalar": 1e-5, "leaf": 1e-4}
+
+
+#: 15c: the reference CLI's docstring example, as published
+XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--steps", "6", "--batch", "8",
+                    "--seq", "128", "--ckpt-every", "3"]
+
+
+def all_counts(kernels, others) -> dict:
+    return dict(read_counts(kernels),
+                zns_alloc=sum(others["zns_alloc"].counts.values()),
+                page_clock=others["page_clock"].launches)
+
+
+def reset_all(kernels, others) -> None:
+    for mod in list(kernels.values()) + list(others.values()):
+        mod.reset_launches()
+
+
+class HookedUpdate:
+    """A check hook around ``train.optimizer.update``, which
+    ``make_train_step`` calls.  It times each update apart, by CUDA
+    events on the card (so a timed step does not synchronise for it),
+    and with ``keep_grads`` keeps the last step's gradients: 15a compares
+    them, and 15b must not hold its 7.45 GB of them through the next
+    step.  Restores the function on exit."""
+
+    def __init__(self, torch, OPT, keep_grads: bool = False):
+        self.torch, self.OPT, self.keep_grads = torch, OPT, keep_grads
+        self.marks, self.grads = [], None
+
+    def _mark(self, cuda: bool):
+        if not cuda:
+            return time.perf_counter()
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __enter__(self):
+        orig = self.orig = self.OPT.update
+
+        def update(cfg, params, grads, state):
+            cuda = next(params.parameters()).is_cuda
+            t0 = self._mark(cuda)
+            out = orig(cfg, params, grads, state)
+            self.marks.append((t0, self._mark(cuda)))
+            if self.keep_grads:
+                self.grads = [g.detach() for g in grads]
+            return out
+        self.OPT.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.OPT.update = self.orig
+
+    @property
+    def seconds(self) -> list:
+        """Each update's seconds, in call order."""
+        if any(not isinstance(t0, float) for t0, _ in self.marks):
+            self.torch.cuda.synchronize()
+        return [t1 - t0 if isinstance(t0, float)
+                else t0.elapsed_time(t1) / 1e3 for t0, t1 in self.marks]
+
+
+def train_cut_step(torch, TT, MDL, OPT, TD, cfg, batch, seq, devices):
+    """One ``make_train_step`` step of ``cfg`` in f32 on each device, from
+    parameters drawn once on the CPU from seed 0, on ``SyntheticLM``'s
+    first batch: {device: (metrics, gradients, seconds)}."""
+    cpu = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", dtype=torch.float32)
+    data = TD.SyntheticLM(vocab=cfg.vocab, batch=batch, seq=seq,
+                          seed=0).batch_at(0)
+    opt_cfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for dev in devices:
+        model = cpu if dev == "cpu" else TT.like(
+            cpu, [p.detach().to(dev) for p in cpu.parameters()])
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        step = MDL.make_train_step(cfg, opt_cfg)
+        with HookedUpdate(torch, OPT, keep_grads=True) as hook:
+            sync()
+            t0 = time.perf_counter()
+            _, _, m = step(model, OPT.init(model), b)
+            sync()
+            dt = time.perf_counter() - t0
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [g.cpu() for g in hook.grads], dt)
+        del model
+    return out
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_train_vs_cpu(torch, TT, MDL, OPT, TD, get_arch, kernels,
+                       others) -> None:
+    """15a: each cut's step on the card against the same step on the
+    CPU, the launch counts zeroed just before and read just after."""
+    import dataclasses
+    for name, depth, batch, seq in TRAIN_CUTS:
+        cfg = dataclasses.replace(get_arch(name), n_layers=depth)
+        reset_all(kernels, others)
+        run = train_cut_step(torch, TT, MDL, OPT, TD, cfg, batch, seq,
+                             ("cuda", "cpu"))
+        counts = all_counts(kernels, others)
+        (gm, gg, gs), (cm, cg, cs) = run["cuda"], run["cpu"]
+        errs = {k: rel(gm[k], cm[k]) for k in ("loss", "nll", "grad_norm")}
+        aux_err = abs(gm["aux"] - cm["aux"])
+        leaf = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(gg, cg))
+        check(all(v == 0 for v in counts.values()),
+              f"phase 15a: {name} train step launched {counts}")
+        check(all(v <= TRAIN_TOL["scalar"] for v in errs.values())
+              and aux_err <= TRAIN_TOL["scalar"] * max(1.0, abs(cm["aux"])),
+              f"phase 15a: {name} cuda vs cpu {errs}, aux {aux_err}")
+        check(leaf <= TRAIN_TOL["leaf"],
+              f"phase 15a: {name} gradient leaf rel err {leaf}")
+        check(all(math.isfinite(v) for v in gm.values()),
+              f"phase 15a: {name} metrics {gm}")
+        log(f"phase 15a: {name} cut to depth {depth} (published widths, "
+            f"f32, B {batch} x S {seq}), one make_train_step step: cuda "
+            f"vs cpu loss {gm['loss']!r} vs {cm['loss']!r} (rel "
+            f"{errs['loss']:.3e}), aux {gm['aux']!r}, grad norm "
+            f"{gm['grad_norm']!r} vs {cm['grad_norm']!r} (rel "
+            f"{errs['grad_norm']:.3e}), worst of {len(gg)} gradient leaves "
+            f"{leaf:.3e} (bars {TRAIN_TOL}); {gs:.3f} s on cuda, "
+            f"{cs:.3f} s on cpu; launches {counts}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_train_step(torch, fn, top: int = 12) -> dict:
+    """One train step under ``torch.profiler``: wall and busy time, the
+    device events, and the kernels taking the most device time (name,
+    launches, total us)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in device:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_us": wall_us, "busy_us": busy_us,
+            "device_events": len(device),
+            "top": [(n[:90], c, us) for n, (c, us) in ranked]}
+
+
+def phi3_train_run(torch, serve, MDL, OPT, TD, cfg, opt_cfg, batch,
+                   kernels, others) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    model = serve.build(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == PHI3_PARAMS,
+          f"{cfg.name}: {n_params} parameters, not {PHI3_PARAMS}")
+    opt = OPT.init(model)
+    step = MDL.make_train_step(cfg, opt_cfg)
+    data = TD.SyntheticLM(vocab=cfg.vocab, batch=batch, seq=TRAIN_SEQ,
+                          seed=0)
+    state = {"model": model, "opt": opt}
+    losses, times = [], []
+
+    dev = next(model.parameters()).device
+
+    def one(i: int) -> None:
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch_at(i).items()}
+        state["model"], state["opt"], m = step(state["model"], state["opt"],
+                                               b)
+        losses.append(float(m["loss"]))
+
+    with HookedUpdate(torch, OPT) as hook:
+        for i in range(1 + TRAIN_TIMED):
+            if i == 1:                      # after the warm-up step
+                reset_all(kernels, others)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one(i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = all_counts(kernels, others)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_train_step(torch, lambda: one(1 + TRAIN_TIMED))
+    return {"n_params": n_params, "losses": losses, "times": times,
+            "update_s": hook.seconds, "counts": counts, "peak": peak,
+            "prof": prof, "batch": batch}
+
+
+def phase_train_phi3(torch, serve, MDL, OPT, TD, cfg, kernels,
+                     others) -> dict:
+    """15b: phi3-mini-3.8b as published, bf16 parameters, f32 AdamW
+    state, remat, qchunk; one warm-up step, three timed, one profiled.
+    The batch is halved only if the card runs out of memory."""
+    # the reference's AdamW defaults: lr 3e-4 after 100 warm-up steps, so
+    # 3e-6 to 1.5e-5 here (a first try's 2e-5 to 1e-4 sign-like steps,
+    # every weight moving at once, sent the loss up within four steps)
+    opt_cfg = OPT.AdamWConfig()
+    batch = TRAIN_BATCH
+    while True:
+        err = None
+        try:
+            run = phi3_train_run(torch, serve, MDL, OPT, TD, cfg,
+                                 opt_cfg, batch, kernels, others)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e).splitlines()[0]
+        gc.collect()                # the failed run's tensors, freed
+        torch.cuda.empty_cache()
+        check(batch > 1, f"phase 15b: out of memory at batch 1: {err}")
+        log(f"phase 15b: out of memory at batch {batch} ({err}); halving "
+            f"the batch")
+        batch //= 2
+    losses, times = run["losses"], run["times"]
+    import statistics
+    step_s = statistics.median(times[1:])
+    upd_s = statistics.median(run["update_s"][1:1 + TRAIN_TIMED])
+    tokens = batch * TRAIN_SEQ
+    flops = 6 * run["n_params"] * tokens
+    pr = run["prof"]
+    log(f"phase 15b: {cfg.name} as published ({run['n_params']} "
+        f"parameters, {cfg.n_layers} layers, d {cfg.d_model}, bf16, f32 "
+        f"AdamW state, remat, qchunk), B {batch} x S {TRAIN_SEQ} = "
+        f"{tokens} tokens a step: losses {losses}; step s {times} (first "
+        f"= warm-up); median {step_s * 1e3:.3f} ms a step = "
+        f"{tokens / step_s:.1f} tokens/s; optimizer update "
+        f"{upd_s * 1e3:.3f} ms = {upd_s / step_s:.4f} of the step; peak "
+        f"device memory {run['peak'] / 1e9:.3f} GB "
+        f"({run['peak'] / 2**30:.3f} GiB); 6*N*tokens = {flops:.4e} flop "
+        f"= {flops / step_s / 1e12:.2f} TFLOP/s = "
+        f"{flops / step_s / BF16_FLOPS_PER_S:.4f} of the dense bf16 peak; "
+        f"launches in the timed steps {run['counts']}")
+    log(f"phase 15b: a profiled step: wall {pr['wall_us'] / 1e3:.3f} ms, "
+        f"device busy {pr['busy_us'] / 1e3:.3f} ms "
+        f"({pr['busy_us'] / pr['wall_us']:.4f} of wall) over "
+        f"{pr['device_events']} device events")
+    for name, n, us in pr["top"]:
+        log(f"phase 15b: profiled step: {us / 1e3:.3f} ms "
+            f"({us / pr['busy_us']:.4f} of busy) in {n} launches of "
+            f"{name}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase 15b: losses {losses}")
+    check(all(v == 0 for v in run["counts"].values()),
+          f"phase 15b: the timed steps launched {run['counts']}")
+    return dict(run, step_s=step_s, update_s=upd_s)
+
+
+def counted_steps(MDL, kernels, others, deltas: list):
+    """A check hook: ``MDL.make_train_step`` wrapped so each step records
+    the launch counts it added (the counters are module globals; the
+    checkpoint store's simulated device may launch ``zns_alloc`` from
+    its save thread meanwhile)."""
+    orig = MDL.make_train_step
+
+    def make(*a, **kw):
+        step = orig(*a, **kw)
+
+        def counted(*args):
+            before = all_counts(kernels, others)
+            out = step(*args)
+            after = all_counts(kernels, others)
+            deltas.append({k: after[k] - before[k] for k in after})
+            return out
+        return counted
+    return orig, make
+
+
+def phase_train_xlstm(torch, launch_train, MDL, kernels, others) -> dict:
+    """15c: xlstm-125m as published through the port's training CLI: an
+    uninterrupted run, a run failing at step 4 from a fresh directory,
+    and its restart, which must replay the uninterrupted run's losses
+    for steps 3-5 bit for bit."""
+    import shutil
+    import statistics
+    base = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    deltas: list = []
+    orig, MDL.make_train_step = counted_steps(MDL, kernels, others, deltas)
+    try:
+        reset_all(kernels, others)
+        torch.cuda.reset_peak_memory_stats()
+        full = launch_train.main(XLSTM_TRAIN_ARGS + ["--ckpt-dir",
+                                                     str(base / "a")])
+        peak = torch.cuda.max_memory_allocated()
+        counts = all_counts(kernels, others)
+        try:
+            launch_train.main(XLSTM_TRAIN_ARGS + [
+                "--ckpt-dir", str(base / "b"), "--fail-at", "4"])
+            fail("phase 15c: --fail-at 4 did not fail")
+        except RuntimeError as e:
+            check("injected failure at step 4" in str(e),
+                  f"phase 15c: unexpected failure {e}")
+        again = launch_train.main(XLSTM_TRAIN_ARGS + ["--ckpt-dir",
+                                                      str(base / "b")])
+    finally:
+        MDL.make_train_step = orig
+    res, res2 = full["result"], again["result"]
+    check(res2.restored_from == 2,
+          f"phase 15c: restored from {res2.restored_from}, not step 2")
+    check(res2.losses == res.losses[3:],
+          f"phase 15c: restart losses {res2.losses} != the uninterrupted "
+          f"run's {res.losses[3:]}")
+    check(all(math.isfinite(x) for x in res.losses)
+          and res.losses[-1] < res.losses[0],
+          f"phase 15c: losses {res.losses}")
+    in_steps = {k: sum(d[k] for d in deltas) for k in deltas[0]}
+    check(all(v == 0 for k, v in in_steps.items() if k != "zns_alloc"),
+          f"phase 15c: train steps launched {in_steps}")
+    ck, rep = full["ckpt"], full["zns"]
+    n_params = sum(p.numel() for p in full["model"].parameters())
+    check(n_params == XLSTM_PARAMS, f"xlstm-125m: {n_params} parameters")
+    step_ms = statistics.median(res.step_times[1:]) * 1e3
+    tokens = 8 * 128
+    log(f"phase 15c: xlstm-125m as published ({n_params} parameters) "
+        f"through launch.train.main {' '.join(XLSTM_TRAIN_ARGS)}: losses "
+        f"{res.losses}; step s {res.step_times} (first = warm-up); median "
+        f"{step_ms:.3f} ms a step = {tokens / step_ms * 1e3:.1f} tokens/s; "
+        f"peak device memory {peak / 1e9:.3f} GB; whole run "
+        f"{full['seconds']:.2f} s")
+    log(f"phase 15c: restart after --fail-at 4: restored from checkpoint "
+        f"step {res2.restored_from}, losses {res2.losses} == the "
+        f"uninterrupted run's steps 3-5 bit for bit")
+    log(f"phase 15c: ZNS checkpoint-store telemetry (zn540, SUPERBLOCK, "
+        f"keep 2): DLWA {rep['dlwa']!r}, SA {rep['sa']!r}, finishes "
+        f"{rep['finishes']:.0f}, resets {rep['resets']:.0f}, host pages "
+        f"{rep['host_pages']:.0f}, dummy pages {rep['dummy_pages']:.0f}; "
+        f"{ck.saves} saves, {ck.bytes_saved / ck.saves:.0f} bytes a save, "
+        f"{ck.save_seconds / ck.saves:.3f} s a save (disk and telemetry, "
+        f"on the writer thread); launches in the run {counts} "
+        f"(zns_alloc: the store's simulated device), in its train steps "
+        f"{in_steps}")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"step_ms": step_ms, "zns": rep, "peak": peak}
+
+
+def phase_autograd_guard(torch, fops) -> None:
+    """15d: a kernel call on CUDA tensors that require grad, grad mode
+    on, raises; under ``torch.no_grad()`` it launches once."""
+    q = torch.randn(1, 4, 128, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    fops.reset_launches()
+    try:
+        fops.attention(q, q, q, causal=True)
+        fail("phase 15d: flash attention under autograd did not raise")
+    except RuntimeError as e:
+        check("no backward" in str(e), f"phase 15d: raised {e}")
+    check(fops.launches == 0, "phase 15d: the refused call launched")
+    with torch.no_grad():
+        out = fops.attention(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    check(fops.launches == 1 and out.grad_fn is None,
+          f"phase 15d: no_grad call launched {fops.launches}")
+    log("phase 15d: flash_attention on CUDA tensors requiring grad raised "
+        "under grad mode and launched once under torch.no_grad()")
+
+
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3349,8 +3748,13 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.kernels.ssm_scan import ref as sref
     from repro_torch.kernels.zns_alloc import ops, ref
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.phi3_mini_38b import CONFIG as PHI3
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import model as MDL
+    from repro_torch.train import data as TD
+    from repro_torch.train import optimizer as OPT
     from repro_torch.models import mla as MLA
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TT
@@ -3764,6 +4168,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phases 8g-10g took {time.perf_counter() - t0:.1f} s")
+
+    # 15. training: the card against the CPU at full width (15a), then
+    # phi3-mini-3.8b (15b) and xlstm-125m (15c) as published; no kernel
+    # in a train step, none silently under autograd (15d)
+    t0 = time.perf_counter()
+    phase_train_vs_cpu(torch, TT, MDL, OPT, TD, get_arch, kernels, others)
+    phase_train_phi3(torch, serve, MDL, OPT, TD, PHI3, kernels, others)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_xlstm(torch, launch_train, MDL, kernels, others)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_autograd_guard(torch, fops)
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]

@@ -7,7 +7,8 @@ so an edited source or header builds anew), and loaded with ``ctypes``.
 Nothing here runs when a module is imported: the CPU tests import every
 module on a machine with no compiler.  :data:`BUILDS` counts the ``nvcc``
 runs of this process and their seconds (``repro_torch.obs.profile``
-reads them as compile time).
+reads them as compile time).  :func:`refuse_autograd` is the wrappers'
+shared guard against launching a forward-only kernel under autograd.
 """
 
 from __future__ import annotations
@@ -137,3 +138,17 @@ def load(source: Path) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[path] = ctypes.CDLL(str(path))
     return lib
+
+
+def refuse_autograd(kernel: str, plain: str, *tensors) -> None:
+    """Raise where a launch of ``kernel`` would drop gradients: grad mode
+    is on and an input requires grad.  The kernels are forward-only and
+    reached through ``ctypes``, so their outputs carry no ``grad_fn``; a
+    train step through one would lose every gradient upstream of it
+    without an error.  ``plain`` names the differentiable path to use."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward and an input "
+            f"requires grad; use {plain} (plain PyTorch under autograd), "
+            f"or call it under torch.no_grad()")

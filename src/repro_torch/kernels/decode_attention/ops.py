@@ -191,6 +191,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, "
                          f"not {q.device}")
+    _build.refuse_autograd("decode_attention", 'impl="ref"', q, k, v)
     if lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32, got {lengths.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):

@@ -4,8 +4,11 @@
 hand-written Hopper kernel (``csrc/flash_attention.cu``, built at first
 use) on CUDA tensors and runs the plain version in :mod:`.ref` on CPU
 tensors -- the choice is made by the tensors' device alone, and a CUDA
-call either launches the kernel or raises.  ``impl="ref"`` runs the
-plain version on any device (the card's comparison path).
+call either launches the kernel or raises (among other reasons when
+autograd would need the output's gradient: the kernel has no backward).
+``impl="ref"`` runs the plain version on any device (the card's
+comparison path), ``impl="qchunk"`` the training path,
+:func:`.ref.attention_qchunk`.
 
 The kernel reads q, k and v through their strides (the last dimension
 must be contiguous), so a ``(B, S, H, D)`` projection viewed as
@@ -32,7 +35,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_qchunk,
+                                                      attention_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 192
@@ -96,6 +100,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in q's dtype (see :mod:`.ref` for the semantics)."""
     global launches
     _check(q, k, v, causal)
+    if impl == "qchunk":
+        return attention_qchunk(q, k, v, causal=causal)
     if impl == "ref" or (impl == "kernel" and q.device.type == "cpu"):
         return attention_ref(q, k, v, causal=causal)
     if impl != "kernel":
@@ -103,6 +109,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cpu or cuda tensors, not "
                          f"{q.device}")
+    _build.refuse_autograd("attention", 'impl="qchunk" or impl="ref"', q, k,
+                           v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")

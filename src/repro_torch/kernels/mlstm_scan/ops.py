@@ -90,6 +90,8 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan runs on cpu or cuda tensors, not "
                          f"{q.device}")
+    _build.refuse_autograd("mlstm_scan", 'impl="ref"', q, k, v, log_i,
+                           log_f)
     b, s, h, p = q.shape
     if p % 32 or p > MAX_P:
         raise ValueError(f"mlstm_scan's kernel takes a head size that is a "

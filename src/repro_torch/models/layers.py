@@ -15,6 +15,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _normal(shape, generator: Optional[torch.Generator], device,
@@ -148,7 +149,10 @@ def embedding_init(generator, vocab: int, d: int, *, device,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """The rows of ``table`` at ``tokens``.  ``F.embedding`` rather than
+    ``table[tokens]``: the same gather forward, and a backward that sums a
+    repeated token's gradients in a fixed order on CUDA."""
+    return torch.nn.functional.embedding(tokens, table)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -160,20 +164,12 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # scans over time
 # --------------------------------------------------------------------- #
-def chunked_remat_scan(step: Callable, carry, xs, chunk: int
-                       ) -> Tuple[object, object]:
-    """The forward of the reference's ``chunked_remat_scan``: ``step(carry,
-    x_t) -> (carry, y_t)`` stepped over the leading (time) axis of ``xs``
-    (a tensor or a tuple of tensors), returning the last carry and the
-    ``y_t`` stacked on a new leading axis (a tensor or a tuple, as
-    ``step`` returns them) -- what ``lax.scan`` gives.  The reference's
-    time chunks (``chunk`` steps each when ``T % chunk == 0`` and ``T >
-    chunk``) exist to rematerialise a chunk in the backward; they change
-    nothing in the forward, so ``chunk`` is taken and ignored here."""
-    del chunk
+def _scan(step: Callable, carry, xs, start: int, stop: int):
+    """``step`` over steps ``start:stop`` of ``xs``: the last carry and the
+    ``y_t`` stacked (a tensor or a tuple, as ``step`` returns them)."""
     seq = xs if isinstance(xs, (tuple, list)) else (xs,)
     ys = []
-    for t in range(seq[0].shape[0]):
+    for t in range(start, stop):
         x_t = tuple(a[t] for a in seq)
         carry, y = step(carry, x_t if isinstance(xs, (tuple, list))
                         else x_t[0])
@@ -181,3 +177,40 @@ def chunked_remat_scan(step: Callable, carry, xs, chunk: int
     if isinstance(ys[0], (tuple, list)):
         return carry, tuple(torch.stack(c) for c in zip(*ys))
     return carry, torch.stack(ys)
+
+
+def chunked_remat_scan(step: Callable, carry, xs, chunk: int
+                       ) -> Tuple[object, object]:
+    """The reference's ``chunked_remat_scan``: ``step(carry, x_t) ->
+    (carry, y_t)`` stepped over the leading (time) axis of ``xs`` (a
+    tensor or a tuple of tensors), returning the last carry and the
+    ``y_t`` stacked on a new leading axis (a tensor or a tuple, as
+    ``step`` returns them) -- what ``lax.scan`` gives.
+
+    Under autograd, when ``T % chunk == 0`` and ``T > chunk`` (the
+    reference's rule), each chunk of ``chunk`` steps is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant): the backward keeps the
+    carries at the chunk boundaries only and recomputes a chunk's steps,
+    so memory is O((T/chunk + chunk) x state) instead of O(T x state).
+    The forward is the same steps in the same order either way."""
+    seq = xs if isinstance(xs, (tuple, list)) else (xs,)
+    t = seq[0].shape[0]
+    if (not torch.is_grad_enabled() or chunk <= 1 or t % chunk
+            or t <= chunk):
+        return _scan(step, carry, xs, 0, t)
+    parts = []
+    for start in range(0, t, chunk):
+        carry, ys = checkpoint(_scan, step, carry, xs, start, start + chunk,
+                               use_reentrant=False)
+        parts.append(ys)
+    if isinstance(parts[0], tuple):
+        return carry, tuple(torch.cat(c) for c in zip(*parts))
+    return carry, torch.cat(parts)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """logits (..., V) f32, labels (...) int: the mean NLL."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long()).squeeze(-1)
+    return (logz - gold).mean()

@@ -1,22 +1,85 @@
-"""Model facade for serving (the port of ``repro.models.model``'s serving
-half): the prefill and decode step functions, the parameter counts and
-the stub frontends' memory length.
+"""Model facade (the port of ``repro.models.model``): the loss and the
+train step, the prefill and decode step functions, the parameter counts
+and the stub frontends' memory length.
 
-``attn_impl`` and ``ssm_impl`` are ``"kernel"`` (the Hopper attention
-kernels, and the selective-scan and mLSTM / sLSTM scan kernels, on CUDA
-tensors, their plain versions on CPU tensors) or ``"ref"`` (the plain
-versions everywhere).  The two are separate knobs to mirror the
+Serving: ``attn_impl`` and ``ssm_impl`` are ``"kernel"`` (the Hopper
+attention kernels, and the selective-scan and mLSTM / sLSTM scan kernels,
+on CUDA tensors, their plain versions on CPU tensors) or ``"ref"`` (the
+plain versions everywhere).  The two are separate knobs to mirror the
 reference's ``make_prefill_step(cfg, attn_impl, ssm_impl)``; every
-caller today sets them alike.  Decode runs no
-scan: a Mamba or xLSTM layer steps its state with plain torch, as the
-reference does.  Training (``loss_fn``, ``make_train_step``) waits
-for ROADMAP Queue 1 item 12.
+caller today sets them alike.  Decode runs no scan: a Mamba or xLSTM
+layer steps its state with plain torch, as the reference does.
+
+Training: :func:`make_train_step` runs the reference's defaults,
+``attn_impl="qchunk"`` (``kernels/flash_attention/ref.attention_qchunk``)
+and ``ssm_impl="ref"`` -- plain PyTorch under autograd, as the reference
+trains through no Pallas kernel (the kernels have no backward, and their
+wrappers refuse inputs that require grad).  The train step makes the
+model's parameters trainable (``transformer.set_trainable``) and updates
+them in place.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
+import torch
+
 from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.train import grad as G
+from repro_torch.train import optimizer as OPT
+
+AUX_WEIGHT = 0.01
+
+
+# --------------------------------------------------------------------- #
+# loss / train step
+# --------------------------------------------------------------------- #
+def loss_fn(model, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            attn_impl: str = "qchunk", ssm_impl: str = "ref",
+            remat: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(nll + AUX_WEIGHT * aux, {"nll", "aux"}) of ``batch``'s
+    ``tokens`` against its ``labels`` (and its ``memory`` for a model
+    with cross layers)."""
+    logits, aux = T.forward_train(model, cfg, batch["tokens"],
+                                  memory=batch.get("memory"),
+                                  attn_impl=attn_impl, ssm_impl=ssm_impl,
+                                  remat=remat)
+    nll = L.cross_entropy(logits, batch["labels"])
+    return nll + AUX_WEIGHT * aux, {"nll": nll, "aux": aux}
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OPT.AdamWConfig,
+                    attn_impl: str = "qchunk", ssm_impl: str = "ref",
+                    n_micro: int = 1, remat: bool = True,
+                    compress_grads: bool = False):
+    """``train_step(state, opt_state, batch) -> (state, opt_state,
+    metrics)``: ``n_micro > 1`` accumulates microbatch gradients in f32;
+    ``remat`` checkpoints every repetition of the layer pattern;
+    ``compress_grads`` quantizes the gradients to int8 with error
+    feedback before the optimizer, and the state is then ``(model,
+    ef)`` (``grad.init_error_feedback``).  The model is updated in
+    place; ``metrics`` holds ``loss``, ``nll``, ``aux``, ``grad_norm``
+    and ``lr`` as device scalars."""
+    def lfn(model, batch):
+        return loss_fn(model, cfg, batch, attn_impl, ssm_impl, remat=remat)
+
+    def train_step(state, opt_state, batch):
+        model, ef = state if compress_grads else (state, None)
+        T.set_trainable(model)
+        loss, grads, metrics = G.accumulate_grads(lfn, model, batch,
+                                                  n_micro)
+        if compress_grads:
+            grads, ef = G.compress_grads_ef(grads, ef, T.leaf_groups(model))
+        model, opt_state, opt_metrics = OPT.update(opt_cfg, model, grads,
+                                                   opt_state)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return ((model, ef) if compress_grads else model), opt_state, \
+            metrics
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, attn_impl: str = "kernel",

@@ -22,7 +22,8 @@ fixes it to the reference's:
   where CUDA's ``index_add_`` would add in any order;
 * with int8 dispatch, the reference masks the dropped pairs' payload but
   not their scales, which all land in slot ``(0, C-1)``: the port adds
-  them there in the same order (:func:`_fold_f32`).
+  them there in the same order (:func:`_fold_f32`), keeping the gradient
+  of the slot's own scale.
 
 ``_maybe_shard`` (the reference's sharding hints) is not ported: one
 card, no mesh.
@@ -36,6 +37,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
@@ -196,9 +198,49 @@ def _dispatch_int8(x, slot, keep, e, c):
     if n_drop:
         dropped = torch.clamp_min(torch.zeros((), device=x.device),
                                   1e-6) * _INV_127
-        sbuf[c - 1] = _fold_f32(float(sbuf[c - 1]), float(dropped), n_drop)
-    return (qbuf[:e * c].to(torch.bfloat16).to(x.dtype)
-            * sbuf[:e * c].to(torch.bfloat16).to(x.dtype))
+        kept = sbuf[c - 1].clone()
+        # the fold's value plus the slot's own term minus itself (exactly
+        # 0): the value is the fold's, bit for bit, and the slot's real
+        # scale keeps its gradient, as under the reference's scatter-add
+        sbuf[c - 1] = (_fold_f32(float(kept.detach()), float(dropped), n_drop)
+                       + (kept - kept.detach()))
+    return _Dequant.apply(qbuf[:e * c], sbuf[:e * c], x.dtype)
+
+
+def _sum_bf16(p: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of bf16 ``p`` (R, n) -> (R, 1) as XLA on
+    the CPU reduces a bf16 array: windows of 32 (the padding split low /
+    high, the larger half high), each a left fold rounded to bf16 at
+    every add, then the windows' sums the same way until one is left."""
+    while p.shape[-1] > 1:
+        n = p.shape[-1]
+        w = min(32, n)
+        pad = -n % w
+        p = F.pad(p, (pad // 2, pad - pad // 2)).reshape(p.shape[0], -1, w)
+        acc = p[..., 0]
+        for j in range(1, w):
+            acc = acc + p[..., j]
+        p = acc
+    return p
+
+
+class _Dequant(torch.autograd.Function):
+    """``bf16(q) * bf16(scale)`` in ``dtype`` for ``q`` (R, d) int8 and
+    ``scale`` (R, 1) f32.  The scale's gradient is the reference's compiled
+    one: its transpose rounds the cotangent and each product to bf16 and
+    sums them over d in bf16 (:func:`_sum_bf16`); autograd's would sum in
+    f32 and round once, which is off by ~1e-2 of the scale's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, scale, dtype):
+        qb = q.to(torch.bfloat16)
+        ctx.save_for_backward(qb)
+        return qb.to(dtype) * scale.to(torch.bfloat16).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        qb, = ctx.saved_tensors
+        return None, _sum_bf16(qb * g.to(torch.bfloat16)).float(), None
 
 
 def _promoted(a: torch.Tensor, b: torch.Tensor):
@@ -213,10 +255,13 @@ def _combine(y: torch.Tensor, gate_idx: torch.Tensor, slot: torch.Tensor,
     """out[t] = sum_j y[slot[t, j]] * w[t, j] in y's dtype, each product
     and each add rounded, the k terms added in ascending expert id: the
     order in which XLA applies the reference's scatter-add updates
-    (sorted by expert).  ``y``'s rows past the kept slots are zero."""
+    (sorted by expert).  A slot past ``y``'s rows (a dropped pair's)
+    reads row 0 with weight 0, and so adds nothing."""
     _, by_expert = torch.sort(gate_idx, dim=1)
     rows = slot.gather(1, by_expert)
-    w = gate_vals.gather(1, by_expert).to(y.dtype)
+    kept = rows < y.shape[0]
+    rows = torch.where(kept, rows, 0)
+    w = torch.where(kept, gate_vals.gather(1, by_expert), 0).to(y.dtype)
     out = torch.zeros((slot.shape[0], y.shape[1]), dtype=y.dtype,
                       device=y.device)
     for j in range(slot.shape[1]):
@@ -259,8 +304,7 @@ def moe_forward(p, x: torch.Tensor, dims: MoEDims,
     g = torch.bmm(*_promoted(buf, p["w_gate"]))
     u = torch.bmm(*_promoted(buf, p["w_up"]))
     h, w_down = _promoted(L.silu(g) * u, p["w_down"])
-    y = h.new_zeros((e * c + 1, d))          # row e*c stays 0: the drops
-    torch.bmm(h, w_down, out=y[:e * c].view(e, c, d))
+    y = torch.bmm(h, w_down).view(e * c, d)
 
     out = _combine(y, gate_idx, slot, gate_vals).to(x.dtype)
     if "shared" in p:

@@ -1,7 +1,8 @@
-"""Architecture assembly for serving: stacks of ``"attn"``, ``"cross"``,
-``"mamba"``, ``"mlstm"`` and ``"slstm"`` blocks with dense or MoE FFNs,
-and the encoder of an encoder-decoder (the port of
-``repro.models.transformer``'s serving path).
+"""Architecture assembly: stacks of ``"attn"``, ``"cross"``, ``"mamba"``,
+``"mlstm"`` and ``"slstm"`` blocks with dense or MoE FFNs, and the encoder
+of an encoder-decoder (the port of ``repro.models.transformer``): the
+serving path (:func:`forward_prefill`, :func:`forward_decode`) and the
+training forward (:func:`forward_train`).
 
 The reference stacks parameters per pattern slot and runs
 ``jax.lax.scan`` over repetitions; the port holds one :class:`Block` per
@@ -59,17 +60,25 @@ place.
 Rounding follows the reference's compiled program: within a step of its
 layer scan a norm reads the residual stream's f32 sum (:func:`_add`),
 while the scan's carry, between steps and into the norm after the scan,
-is rounded to the activation dtype (:func:`carry_rounds`).
+is rounded to the activation dtype (:func:`carry_rounds`).  Training
+runs the same scan, so :func:`forward_train` rounds alike.
+
+Parameters are frozen (``requires_grad=False``) as built, so serving
+builds no autograd graph; :func:`set_trainable` makes them trainable,
+and the train step (``models/model.make_train_step``) calls it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -150,6 +159,14 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def set_trainable(model: nn.Module) -> nn.Module:
+    """Make every parameter of ``model`` require grad (serving builds them
+    frozen); returns ``model``."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
 #: the residual stream: the activations in their dtype, and the same sum
 #: in f32 before its rounding
 Residual = Tuple[torch.Tensor, torch.Tensor]
@@ -223,7 +240,9 @@ class MoEFFN(nn.Module):
     ``record`` a list, each call appends its
     :class:`~repro_torch.models.moe.Routing`; with ``replay`` an iterator
     of ``(T, k)`` expert ids, each call routes its tokens to the next
-    one's experts (``moe_apply``'s ``routes``)."""
+    one's experts (``moe_apply``'s ``routes``).  A call recomputed in
+    the backward of a checkpointed repetition (:class:`_Recompute`)
+    takes the routes its forward took and records nothing."""
 
     def __init__(self, dims: MOE.MoEDims, tree: Dict):
         super().__init__()
@@ -245,11 +264,51 @@ class MoEFFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (T, d), every token of the call."""
-        routes = next(self.replay) if self.replay is not None else None
+        return self.apply_aux(x)[0]
+
+    def apply_aux(self, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(out, the load-balancing aux loss) of x (T, d)."""
+        scope = _Recompute.active
+        again = scope is not None and scope.again
+        if again:
+            routes = scope.routes[scope.at]
+            scope.at += 1
+        else:
+            routes = next(self.replay) if self.replay is not None else None
+            if scope is not None:
+                scope.routes.append(routes)
         out, routing = MOE.moe_forward(self.tree(), x, self.dims, routes)
-        if self.record is not None:
+        if self.record is not None and not again:
             self.record.append(routing)
-        return out
+        return out, routing.aux
+
+
+class _Recompute:
+    """The ``context_fn`` of one checkpointed repetition, so that its MoE
+    layers' check hooks act once a forward: the forward notes the routes
+    each layer replayed (None where it routed itself), and the backward's
+    recompute takes them again in call order (``MoEFFN.replay`` would give
+    it the next call's routes, ``record`` would append twice)."""
+
+    #: the repetition running now, if any
+    active: Optional["_Recompute"] = None
+
+    def __init__(self):
+        self.routes: List[Optional[torch.Tensor]] = []
+        self.again, self.at = False, 0
+
+    def __call__(self):
+        return self._run(False), self._run(True)
+
+    @contextlib.contextmanager
+    def _run(self, again: bool):
+        prev, _Recompute.active = _Recompute.active, self
+        self.again, self.at = again, 0
+        try:
+            yield
+        finally:
+            _Recompute.active = prev
 
 
 class Block(nn.Module):
@@ -280,18 +339,35 @@ class Block(nn.Module):
                 "head_dim": cfg.resolved_head_dim,
                 "rope_theta": cfg.rope_theta}
 
-    def _ffn(self, res: Residual) -> Residual:
+    def _ffn(self, res: Residual
+             ) -> Tuple[Residual, Optional[torch.Tensor]]:
+        """The FFN's residual add, and an MoE FFN's aux loss (None for a
+        dense FFN or none: the reference adds 0 there)."""
         if self.ffn is None:
-            return res
+            return res, None
         h = self.norm2(res)
         if isinstance(self.ffn, MoEFFN):
             # every token of the call at once: capacity and drops depend
             # on the whole batch
-            return _add(res, self.ffn(h.reshape(-1, h.shape[-1])).reshape(
-                h.shape))
+            out, aux = self.ffn.apply_aux(h.reshape(-1, h.shape[-1]))
+            return _add(res, out.reshape(h.shape)), aux
         if self.cfg.act == "swiglu":
-            return _add(res, L.swiglu(h, self.ffn))
-        return _add(res, L.gelu_mlp(h, self.ffn))
+            return _add(res, L.swiglu(h, self.ffn)), None
+        return _add(res, L.gelu_mlp(h, self.ffn)), None
+
+    def forward_train(self, res: Residual, attn_impl: str, ssm_impl: str,
+                      memory: Optional[torch.Tensor] = None
+                      ) -> Tuple[Residual, Optional[torch.Tensor]]:
+        """The layer over a whole sequence with no cache (the reference's
+        ``mode="train"``): the residual stream and the MoE aux loss."""
+        o = KINDS[self.kind].train(self, self.norm1(res), attn_impl,
+                                   ssm_impl)
+        res = _add(res, o)
+        if self.cross is not None:
+            res = _add(res, A.cross_forward(
+                self.cross, self.norm_c(res), memory, impl=attn_impl,
+                **self._cross_dims()))
+        return self._ffn(res)
 
     def prefill(self, res: Residual, cache: Dict[str, torch.Tensor],
                 attn_impl: str, ssm_impl: str,
@@ -307,7 +383,7 @@ class Block(nn.Module):
             res = _add(res, A.cross_prefill(
                 self.cross, self.norm_c(res), memory, mem_cache,
                 impl=attn_impl, **self._cross_dims())[0])
-        return self._ffn(res)
+        return self._ffn(res)[0]
 
     def decode(self, res: Residual, cache: Dict[str, torch.Tensor],
                pos: torch.Tensor, attn_impl: str,
@@ -322,7 +398,7 @@ class Block(nn.Module):
                 self.cross, self.norm_c(res), mem_cache,
                 lengths=mem_cache["lengths"], impl=attn_impl,
                 **self._cross_dims()))
-        return self._ffn(res)
+        return self._ffn(res)[0]
 
     def encode(self, res: Residual, attn_impl: str) -> Residual:
         """An encoder layer: bidirectional self-attention with RoPE at
@@ -330,7 +406,7 @@ class Block(nn.Module):
         ``causal=False``)."""
         o = A.attn_forward(self.mixer, self.norm1(res), causal=False,
                            impl=attn_impl, **self._dims())
-        return self._ffn(_add(res, o))
+        return self._ffn(_add(res, o))[0]
 
     def _cross_dims(self) -> dict:
         cfg = self.cfg
@@ -354,6 +430,10 @@ def _attn_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
 def _attn_prefill(blk: Block, h, cache, attn_impl, ssm_impl):
     return A.attn_prefill(blk.mixer, h, cache, impl=attn_impl,
                           **blk._dims())[0]
+
+
+def _attn_train(blk: Block, h, attn_impl, ssm_impl):
+    return A.attn_forward(blk.mixer, h, impl=attn_impl, **blk._dims())
 
 
 def _attn_decode(blk: Block, h, cache, pos, attn_impl):
@@ -393,6 +473,10 @@ def _mla_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
 
 def _mla_prefill(blk: Block, h, cache, attn_impl, ssm_impl):
     return MLA.mla_prefill(blk.mixer, h, cache, blk.cfg, impl=attn_impl)[0]
+
+
+def _mla_train(blk: Block, h, attn_impl, ssm_impl):
+    return MLA.mla_forward(blk.mixer, h, blk.cfg, impl=attn_impl)
 
 
 def _mla_decode(blk: Block, h, cache, pos, attn_impl):
@@ -438,6 +522,13 @@ def _slstm_decode(blk: Block, h, cache, pos, attn_impl):
     return X.slstm_decode(blk.mixer, h, cache, blk.cfg.n_heads)[0]
 
 
+def _stateless(prefill: Callable) -> Callable:
+    """A recurrent kind's train forward: its prefill, which leaves the
+    cache as it was (and so needs none)."""
+    return lambda blk, h, attn_impl, ssm_impl: prefill(blk, h, None,
+                                                       attn_impl, ssm_impl)
+
+
 @dataclass(frozen=True)
 class Kind:
     """Everything the stack knows of one block kind."""
@@ -449,6 +540,7 @@ class Kind:
     prefill: Callable   # (block, h, cache, attn_impl, ssm_impl) -> out
     decode: Callable    # (block, h, cache, pos, attn_impl) -> out
     stack: str          # the kind whose cache stack holds this one's
+    train: Callable     # (block, h, attn_impl, ssm_impl) -> out
     cache_prefix: str = ""   # before a cache name in the flat caches
     cache_fill: Tuple[Tuple[str, float], ...] = ()   # non-zero starts
 
@@ -459,20 +551,21 @@ class Kind:
 
 KINDS: Dict[str, Kind] = {
     "attn": Kind("self", "kv", ("k", "v"), _attn_init, _attn_cache,
-                 _attn_prefill, _attn_decode, "attn"),
+                 _attn_prefill, _attn_decode, "attn", _attn_train),
     # a cross layer's self-attention; its cross half is the Block's
     "cross": Kind("self", "kv", ("k", "v"), _attn_init, _attn_cache,
-                  _attn_prefill, _attn_decode, "attn"),
+                  _attn_prefill, _attn_decode, "attn", _attn_train),
     "mamba": Kind("mamba", "mamba", ("conv", "ssm"), _mamba_init,
-                  _mamba_cache, _mamba_prefill, _mamba_decode, "mamba"),
+                  _mamba_cache, _mamba_prefill, _mamba_decode, "mamba",
+                  _stateless(_mamba_prefill)),
     "mla": Kind("self", "kv", ("c_kv", "k_rope"), _mla_init, _mla_cache,
-                _mla_prefill, _mla_decode, "mla"),
+                _mla_prefill, _mla_decode, "mla", _mla_train),
     "mlstm": Kind("mlstm", "mlstm", ("c", "n", "m"), _mlstm_init,
                   _mlstm_cache, _mlstm_prefill, _mlstm_decode, "mlstm",
-                  "mlstm_", (("m", X.M0),)),
+                  _stateless(_mlstm_prefill), "mlstm_", (("m", X.M0),)),
     "slstm": Kind("slstm", "slstm", ("c", "n", "m", "h"), _slstm_init,
                   _slstm_cache, _slstm_prefill, _slstm_decode, "slstm",
-                  "slstm_", (("m", X.M0),)),
+                  _stateless(_slstm_prefill), "slstm_", (("m", X.M0),)),
 }
 
 
@@ -693,14 +786,104 @@ def forward_decode(model: Transformer, cfg: ArchConfig, token: torch.Tensor,
                    else res), caches
 
 
+def _train_layers(blocks, res: Residual, aux: torch.Tensor,
+                  attn_impl: str, ssm_impl: str,
+                  memory: Optional[torch.Tensor]
+                  ) -> Tuple[Residual, torch.Tensor]:
+    for blk in blocks:
+        res, a = blk.forward_train(res, attn_impl, ssm_impl, memory)
+        if a is not None:
+            aux = aux + a
+    return res, aux
+
+
+def forward_train(model: Transformer, cfg: ArchConfig, tokens: torch.Tensor,
+                  memory: Optional[torch.Tensor] = None,
+                  attn_impl: str = "qchunk", ssm_impl: str = "ref",
+                  remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, Vp) f32 with the vocab tail at
+    -1e30, the MoE layers' aux loss summed, f32 ()), every layer over the
+    whole sequence with no cache.  A model with cross layers takes
+    ``memory`` (B, M, d), run through the encoder first when it has one.
+    With ``remat`` each repetition of the pattern is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
+    its scan body in ``jax.checkpoint``: the backward keeps the stream
+    between repetitions and recomputes a repetition's activations.
+
+    Differentiable through the plain paths only: ``attn_impl="qchunk"``
+    or ``"ref"`` and ``ssm_impl="ref"`` (a kernel refuses inputs that
+    require grad)."""
+    if _has_cross(cfg) and memory is None:
+        raise ValueError(f"{cfg.name} cross-attends: training needs a "
+                         f"memory")
+    if cfg.encoder_layers and memory is not None:
+        memory = encode(model, cfg, memory, attn_impl)
+    res = residual(L.embed(tokens, model.embed))
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    n_prefix = 1 if cfg.first_layer_dense else 0
+    period, reps = len(cfg.pattern), n_scan_reps(cfg)
+    blocks = list(model.blocks)
+    res, aux = _train_layers(blocks[:n_prefix], res, aux, attn_impl,
+                             ssm_impl, memory)
+    for r in range(reps):
+        rep = blocks[n_prefix + r * period:n_prefix + (r + 1) * period]
+        if reps >= 2:                   # the scan's carry (carry_rounds)
+            res = residual(res[0])
+        args = (rep, res, aux, attn_impl, ssm_impl, memory)
+        res, aux = (checkpoint(_train_layers, *args, use_reentrant=False,
+                               context_fn=_Recompute())
+                    if remat else _train_layers(*args))
+    return _logits(model, cfg, residual(res[0]) if reps >= 2 else res), aux
+
+
+def like(model: nn.Module, tensors) -> nn.Module:
+    """A module of ``model``'s structure whose parameters are ``tensors``
+    (in ``model.parameters()`` order, any dtype, not trainable):
+    gradients and optimizer moments in the parameters' layout, so
+    :func:`params_to_numpy` gives them in the reference's tree."""
+    memo = {id(p): nn.Parameter(t, requires_grad=False)
+            for p, t in zip(model.parameters(), tensors, strict=True)}
+    for m in model.modules():      # check hooks are not copied
+        if isinstance(m, MoEFFN):
+            memo[id(m.record)] = memo[id(m.replay)] = None
+    return copy.deepcopy(model, memo)
+
+
+def leaf_groups(model: Transformer) -> List[List[int]]:
+    """For each leaf of the reference's parameter tree, the indices into
+    ``model.parameters()`` of the parameters it stacks: a pattern slot's
+    parameter over the repetitions, an encoder parameter over the
+    encoder's layers, any other alone (per-tensor statistics, such as
+    the int8 gradient scale, are per reference leaf)."""
+    cfg = model.cfg
+    n_prefix = 1 if cfg.first_layer_dense else 0
+    groups: Dict[tuple, List[int]] = {}
+    for i, (name, _) in enumerate(model.named_parameters()):
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layer = int(parts[1])
+            slot = ("first" if layer < n_prefix
+                    else (layer - n_prefix) % len(cfg.pattern))
+            key = ("blocks", slot, *parts[2:])
+        elif parts[0] == "encoder":
+            key = ("encoder", *parts[2:])
+        else:
+            key = tuple(parts)
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
 # --------------------------------------------------------------------- #
 # carry-over from the reference's parameter tree (numpy arrays)
 # --------------------------------------------------------------------- #
 def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """numpy -> torch, bit for bit; a bf16 array (``ml_dtypes``, which
-    ``np.asarray`` of a bf16 JAX array gives) travels as int16."""
+    ``np.asarray`` of a bf16 JAX array gives) travels as int16, and a
+    uint16 array is taken as bf16 bit patterns (what :func:`_to_numpy`
+    gives without ``bf16_dtype``; no tensor of the port is uint16)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())

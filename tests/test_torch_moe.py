@@ -230,6 +230,55 @@ def test_int8_scale_quirk_at_the_last_slot_of_expert_0(monkeypatch, dt):
     assert not got[c:].any()          # the dropped tokens add nothing
 
 
+def test_moe_apply_gradients_match_the_reference(monkeypatch):
+    """``jax.grad`` of the reference's compiled ``moe_apply`` (out . ct +
+    aux) against the port's autograd in f32, routes, kept masks and
+    positions EQUAL: the router, expert and shared weights' gradients at
+    ``rel_err`` <= 1e-4, the input's too.  The input's gradient runs
+    through each token's int8 scale (the payload is rounded), whose
+    cotangent the compiled reference sums in bf16 (its eager gradient
+    differs by 4e-3 to 8e-3, an f32 sum by ~1e-2): the port's
+    ``_Dequant`` sums as it does.  The dropping top-6 int8 case: slot
+    (0, C-1) holds a kept pair's scale and the dropped pairs' folded
+    ones, and a fold that cut the slot's gradient fails the input's
+    check."""
+    rng = np.random.default_rng(31)
+    jdims = dict(LAYER_CASES)["top6-int8-drops"]
+    p = moe_params(rng, jdims, "f32")
+    x = rng.standard_normal((48, jdims.d_model)).astype(np.float32)
+    t, d = x.shape
+    ct = rng.standard_normal((t, d)).astype(np.float32)
+    jp, tp = both(p, "f32")
+    _, _, gate_idx, keep, pos = reference_call(monkeypatch, jp,
+                                               jnp.asarray(x), jdims)
+    assert not keep.all()
+
+    def jloss(p, x):
+        out, aux = JMOE.moe_apply(p, x, jdims)
+        return jnp.sum(out * ct) + aux
+    w_gp, w_gx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp,
+                                                          jnp.asarray(x))
+    leaves = [tp["router"], tp["w_gate"], tp["w_up"], tp["w_down"]]
+    names = ["router", "w_gate", "w_up", "w_down"]
+    if "shared" in tp:
+        leaves += [tp["shared"][n] for n in ("w_gate", "w_up", "w_down")]
+        names += [("shared", n) for n in ("w_gate", "w_up", "w_down")]
+    for leaf in leaves:
+        leaf.requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    out, r = TMOE.moe_forward(tp, tx, torch_dims(jdims))
+    assert np.array_equal(r.gate_idx.numpy(), gate_idx)
+    assert np.array_equal(r.keep.numpy(), keep)
+    assert np.array_equal(r.pos.numpy(), pos)
+    loss = (out * torch.from_numpy(ct)).sum() + r.aux
+    grads = torch.autograd.grad(loss, leaves + [tx])
+    for name, g in zip(names, grads):
+        want = (w_gp[name[0]][name[1]] if isinstance(name, tuple)
+                else w_gp[name])
+        assert rel_err(to_np(g), want) <= 1e-4, name
+    assert rel_err(to_np(grads[-1]), w_gx) <= 1e-4
+
+
 def test_combine_adds_in_the_order_of_the_reference_scatter():
     """Three bf16 contributions 1, 2^-8, 2^-8 (the last two half an ulp
     of 1): added in ascending expert id they give 1 (two ties to even),
