@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase16     # phase 16 alone, on every card
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``);
 run from a checkout, since it imports ``src/repro_torch``.  Phases, each
@@ -76,7 +77,7 @@ of which stops the run with a non-zero exit when it fails:
     at rel 1e-12, see :data:`FLEET_STAT_KEYS`), with exactly one
     ``alloc_select`` and one ``grow_select`` launch per op step of
     every dispatch; each section's seconds and lane-ops/s, a profiled
-    256-step prefix of (a) and a 64-step prefix of (d) off and on, and
+    64-step prefix of (a) and a 32-step prefix of (d) off and on, and
     both fused selections held bit for bit against their plain versions
     and timed at (a)'s 128-lane SUPERBLOCK table and (b)'s 48-lane union
     table;
@@ -291,7 +292,33 @@ then, with the deepseek-v2 cut freed, cross-attention and the encoder:
     15a-15c (``zns_alloc`` launches of the checkpoint store's simulated
     device aside), and a flash-attention call on CUDA tensors that
     require grad raises under grad mode and launches once under
-    ``torch.no_grad()``.
+    ``torch.no_grad()``;
+16. the distributed paths, one spawned process a card over NCCL (world
+    size ``min(4, cards)``; with one card the same code at world size 1,
+    where no collective crosses cards): 16a ``hierarchical_psum`` over
+    (pod, data) = (2, 2) on four cards, (1, n) otherwise, on a 256 MB f32
+    buffer against a flat ``all_reduce`` (rtol 1e-6), both timed by CUDA
+    events with their bus GB/s; 16b ``pipeline_apply`` of the reference
+    test's ``tanh(a @ w)`` block at width 4096, one stage a card, M 8,
+    against the stages in sequence on one card (f32, TF32 off, 1e-5);
+    16c phi3-mini-3.8b at published widths on (data, model) = (2, 2)
+    (four cards; (1, n) otherwise) by the production rules: cut to depth
+    2 in f32, against one card's unsharded run: every gathered gradient
+    leaf at 1e-4, then two train steps' loss, nll and gradient norm at
+    rel 1e-5 and every moment after them at 1e-4, and every parameter
+    and moment at 1e-4 after two steps with AdamW's eps at 1e-3; full
+    depth in bf16 with remat, global B 4 x |data| x S 2048 (each data
+    rank 15b's B 4), a step with its collectives recorded and
+    three timed steps (ms, tokens/s, peak memory a card), the first
+    loss within 2e-2 of the unsharded loss of the same batch (15b's
+    first loss on one card); and the depth-2 state saved from that mesh
+    and restored by ``restore(shardings=)`` on (1, n), parameters and
+    moments bit for bit; 16d granite-3-8b at published widths (caches
+    head-sharded on model 2 on four cards): 8 prompts of 512 prefilled,
+    8 decode steps on sharded caches, the logits within rel 3e-2 of the
+    same run unsharded on one card, ms a decode step; 16e a kernel
+    wrapper given a DTensor raises, and 16c / 16d launch no kernel (the
+    plain versions: ``qchunk`` attention, dense decode attention).
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
@@ -1399,7 +1426,7 @@ def phase_fleet(torch, np, ops, ref, engine, golden: dict) -> dict:
         f"{len(pairs)} paired ratios; the reference's gate is 1.10 over 9) "
         f"{overhead!r} (the pairs took {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    prefix = programs[:, :64]
+    prefix = programs[:, :32]    # 64 until the script neared 1,000 s
     prof_off = profile_dispatch(torch, eng, prefix, dyn)
     prof_on = profile_dispatch(torch, eng, prefix, dyn, obs=obs)
     if prof_off["device_events"] and prof_on["device_events"]:
@@ -1428,10 +1455,12 @@ def phase_fleet(torch, np, ops, ref, engine, golden: dict) -> dict:
             f"{sc['rebuild_pages']!r}, interference "
             f"{sc['rebuild_interference']!r}")
 
-    # a 256-op-step prefix of the fleet sweep under the profiler
+    # a 64-op-step prefix of the fleet sweep under the profiler (256
+    # until the script neared 1,000 s: the profiler's decoding is most
+    # of its time, and the rates it gives are per op step)
     programs, dyn = sweep["_batch"]
     eng = P.make_engine(P.elements.SUPERBLOCK)
-    prefix = programs[:, :256]
+    prefix = programs[:, :64]
     t0 = time.perf_counter()
     prof = profile_dispatch(torch, eng, prefix, dyn)
     log(f"phase 13: the profiled fleet sweep took "
@@ -3708,6 +3737,437 @@ def phase_autograd_guard(torch, fops) -> None:
     log("phase 15d: flash_attention on CUDA tensors requiring grad raised "
         "under grad mode and launched once under torch.no_grad()")
 
+# --------------------------------------------------------------------- #
+# phase 16: the distributed paths, one process a card
+# --------------------------------------------------------------------- #
+#: 16a: a 256 MB f32 buffer
+PSUM_SHAPE = (65536, 1024)
+#: 16b: the reference test's block at width 4096, M 8 microbatches
+PIPE_WIDTH, PIPE_MICRO, PIPE_BATCH = 4096, 8, 64
+#: 16c: the check's cut (depth, global batch, seq)
+DIST_CUT = (2, 2, 256)
+#: 16d: granite's prompts and decode steps
+DIST_DECODE = (8, 512, 8)
+DIST_TOL = {"psum": 1e-6, "pipe": 1e-5, "scalar": 1e-5, "leaf": 1e-4,
+            "loss": 2e-2, "decode": 3e-2}
+
+
+def worst(errs) -> float:
+    """The largest of ``errs``, or inf where one is not finite (Python's
+    ``max`` passes over a NaN that is not first)."""
+    errs = list(errs)
+    return max(errs) if all(map(math.isfinite, errs)) else math.inf
+
+
+def dist_mesh(world: int) -> dict:
+    """(data, model) of phases 16c / 16d: (2, 2) on four cards."""
+    return {"data": 2, "model": 2} if world == 4 else \
+        {"data": 1, "model": world}
+
+
+def dist_psum(torch, dist, G, M, world: int) -> dict:
+    """16a: hierarchical vs flat all-reduce of each rank's own buffer."""
+    pod = 2 if world == 4 else 1
+    mesh = M.make_mesh({"pod": pod, "data": world // pod})
+    gen = torch.Generator(device="cuda").manual_seed(dist.get_rank())
+    x = torch.rand(PSUM_SHAPE, generator=gen, device="cuda") + 1.0
+    flat = x.clone()
+    dist.all_reduce(flat)
+    hier = G.hierarchical_psum(x, mesh)
+    err = float(((hier - flat).abs() / flat.abs()).max())
+    del hier, flat
+
+    y = x.clone()           # the flat all-reduce sums into it in place
+    times = {"flat": [], "hier": []}
+    for name in ("flat", "hier", "hier", "flat"):
+        fn = (lambda: dist.all_reduce(y)) if name == "flat" else (
+            lambda: G.hierarchical_psum(x, mesh))
+        times[name].append(cuda_ms(torch, fn, 5))
+    nbytes = x.numel() * x.element_size()
+    out = {"rel_err": err, "mesh": {"pod": pod, "data": world // pod},
+           "bytes": nbytes}
+    for name, ms in times.items():
+        best = min(ms)
+        # NCCL's bus bandwidth of an all-reduce: bytes x 2(n-1)/n over time
+        out[name] = {"ms": ms, "bus_gb_s": nbytes * 2 * (world - 1) / world
+                     / (best / 1e3) / 1e9}
+    return out
+
+
+def dist_pipeline(torch, M, pipeline_apply, pipeline_utilization,
+                  world: int) -> dict:
+    """16b: the pipeline over one stage a card vs the stages in sequence."""
+    mesh = M.make_mesh({"stage": world})
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    ws = torch.randn((world, PIPE_WIDTH, PIPE_WIDTH), generator=gen,
+                     device="cuda") / math.sqrt(PIPE_WIDTH)
+    x = torch.randn((PIPE_BATCH, PIPE_WIDTH), generator=gen, device="cuda")
+
+    def block(w, a):
+        return torch.tanh(a @ w)
+
+    def run():
+        return pipeline_apply(block, ws, x, mesh=mesh, axis="stage",
+                              n_micro=PIPE_MICRO)
+    out = run()
+    ref = x
+    for w in ws:
+        ref = block(w, ref)
+    err = float((out - ref).abs().max())
+    return {"max_abs_err": err, "ms": cuda_ms(torch, run, 5),
+            "utilization": pipeline_utilization(PIPE_MICRO, world)}
+
+
+def dist_train_check(torch, SH, M, MDL, OPT, TD, serve, cfg, world,
+                     ckpt_dir) -> dict:
+    """16c check: the depth-2 f32 cut, sharded vs one card's unsharded:
+    the gradients, then two train steps -- their metrics, and every
+    parameter and moment after them; then the state saved at this mesh
+    and restored on (1, n)."""
+    import dataclasses
+    from repro_torch.models.shards import whole as gathered
+    from repro_torch.train.checkpoint import CheckpointManager
+    depth, batch, seq = DIST_CUT
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    mesh = M.make_mesh(dist_mesh(world))
+    data = TD.SyntheticLM(vocab=cut.vocab, batch=batch, seq=seq, seed=0)
+    bs = [{k: torch.as_tensor(v, device="cuda")
+           for k, v in data.batch_at(i).items()} for i in range(2)]
+    b = bs[0]
+    opt_cfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+    def fresh():
+        return serve.build(cut, seed=0, device="cuda", dtype=torch.float32)
+
+    def grads(model, batch):
+        with SH.implicit_replication():
+            loss, _ = MDL.loss_fn(SH.T.set_trainable(model), cut, batch)
+            gs = torch.autograd.grad(loss, list(model.parameters()))
+        return [gathered(g) for g in gs]
+    ref_g = grads(fresh(), b)
+    got_g = grads(SH.shard_model(fresh(), mesh),
+                  SH.shard_batch(b, mesh, batch))
+    leaf = worst(rel_err(torch, a, r)[0] for a, r in zip(got_g, ref_g))
+    del ref_g, got_g
+
+    def whole(model, opt):
+        return [gathered(p.detach()) for mod in (model, opt.mu, opt.nu)
+                for p in mod.parameters()]
+
+    def two_steps(opt_cfg):
+        """Two steps sharded and unsharded: the sharded model and state,
+        the metrics' rel errs, and the worst rel err of the parameters
+        and of the moments after them."""
+        step = MDL.make_train_step(cut, opt_cfg)
+
+        def steps(model, batches):
+            opt, metrics = OPT.init(model), []
+            for one in batches:
+                model, opt, m = step(model, opt, one)
+                metrics.append(m)
+            return model, opt, metrics
+        ref, ref_opt, ref_m = steps(fresh(), bs)
+        ref_state = whole(ref, ref_opt)
+        del ref, ref_opt
+        model, opt, ms = steps(SH.shard_model(fresh(), mesh), [
+            SH.shard_batch(one, mesh, batch) for one in bs])
+        errs = {k: worst(rel(float(m[k]), float(r[k]))
+                         for m, r in zip(ms, ref_m))
+                for k in ("loss", "nll", "grad_norm")}
+        state = [rel_err(torch, a, r)[0]
+                 for a, r in zip(whole(model, opt), ref_state)]
+        n = len(state) // 3
+        return model, opt, errs, worst(state[:n]), worst(state[n:])
+    model, opt, errs, params, moments = two_steps(opt_cfg)
+    # eps 1e-8 makes AdamW's first steps take each element's sign, so an
+    # element whose gradient is at rounding noise may flip: the
+    # parameters are then held with eps 1e-3, where the update is at
+    # most lr / eps times the gradient's error
+    *_, params_eps, moments_eps = two_steps(
+        dataclasses.replace(opt_cfg, eps=1e-3))
+    want = whole(model, opt)
+
+    # the elastic restore: saved at this mesh, restored on (1, n)
+    ck = CheckpointManager(ckpt_dir, async_save=True)
+    ck.save(1, {"params": model, "opt": opt})
+    other = M.make_mesh({"data": 1, "model": world})
+    blank = serve.build(cut, seed=1, device="cuda", dtype=torch.float32)
+    state, _ = ck.restore({"params": blank, "opt": OPT.init(blank)},
+                          shardings=other)
+    got = whole(state["params"], state["opt"])
+    same = len(got) == len(want) and all(
+        torch.equal(a, w) for a, w in zip(got, want))
+    on = next(state["params"].parameters()).device_mesh
+    return {"errs": errs, "leaf": leaf, "params": params,
+            "moments": moments, "params_eps": params_eps,
+            "moments_eps": moments_eps,
+            "restore_bit_equal": same,
+            "restore_mesh": M.mesh_shape(on), "saved_mesh": dist_mesh(world)}
+
+
+def dist_train_timed(torch, SH, M, MDL, OPT, TD, CO, serve, cfg, world,
+                     base_loss) -> dict:
+    """16c timed: phi3 at full depth, bf16, remat; a step with its
+    collectives recorded, then three timed steps."""
+    shape = dist_mesh(world)
+    mesh = M.make_mesh(shape)
+    batch = TRAIN_BATCH * shape["data"]
+    data = TD.SyntheticLM(vocab=cfg.vocab, batch=batch, seq=TRAIN_SEQ,
+                          seed=0)
+    model = serve.build(cfg, seed=0, device="cuda")
+    first = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch_at(0).items()}
+    if base_loss is None:       # the unsharded loss of the same batch
+        with torch.no_grad():
+            base_loss = float(MDL.loss_fn(model, cfg, first)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SH.shard_model(model, mesh)
+    opt = OPT.init(model)
+    step = MDL.make_train_step(cfg, OPT.AdamWConfig())
+    losses, times = [], []
+    rec = None
+    for i in range(1 + TRAIN_TIMED):
+        b = SH.shard_batch({k: torch.as_tensor(v, device="cuda")
+                            for k, v in data.batch_at(i).items()},
+                           mesh, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with CO.CollectiveRecord() as rec:
+                model, opt, m = step(model, opt, b)
+        else:
+            model, opt, m = step(model, opt, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "times": times, "batch": batch,
+            "base_loss": base_loss, "mesh": shape,
+            "peak": torch.cuda.max_memory_allocated(),
+            "collectives": CO.collective_bytes(rec),
+            "collective_counts": CO.collective_count(rec)}
+
+
+def dist_decode(torch, SH, M, T, serve, cfg, world) -> dict:
+    """16d: granite prefill + decode on sharded caches vs one card."""
+    from repro_torch.models.shards import whole as gathered
+    n_seq, prompt_len, steps = DIST_DECODE
+    mesh = M.make_mesh(dist_mesh(world))
+    model = serve.build(cfg, seed=0, device="cuda")
+    prompts, _ = serve.make_inputs(cfg, n_seq, prompt_len, seed=0)
+    prompts = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
+    max_seq = prompt_len + steps
+
+    def run(caches, wrap):
+        outs, times = [], []
+        with torch.no_grad(), SH.implicit_replication():
+            lg, caches = T.forward_prefill(model, cfg, wrap(prompts), caches,
+                                           attn_impl="qchunk",
+                                           ssm_impl="ref")
+            outs.append(lg)
+            for i in range(steps):
+                tok = torch.full((n_seq,), i + 1, dtype=torch.int32,
+                                 device="cuda")
+                pos = torch.full((n_seq,), prompt_len + i,
+                                 dtype=torch.int32, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches = T.forward_decode(model, cfg, wrap(tok), caches,
+                                              wrap(pos), attn_impl="dense")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                outs.append(lg)
+        return [gathered(o) for o in outs], times
+    ref, ref_t = run(T.init_caches(cfg, n_seq, max_seq, device="cuda"),
+                     lambda t: t)
+    SH.shard_model(model, mesh)
+    caches = SH.shard_caches(cfg, T.init_caches(cfg, n_seq, max_seq,
+                                                device="cuda"), mesh, n_seq)
+    dp = SH.spec(SH.fit_batch_axes(mesh, n_seq))
+    got, got_t = run(caches, lambda t: SH.place(t, dp, mesh))
+    k_place = [str(p) for p in caches["k"].placements]
+    err = worst(rel_err(torch, g[:, :cfg.vocab], r[:, :cfg.vocab])[0]
+                for g, r in zip(got, ref))
+    return {"rel_err": err, "step_s": got_t, "unsharded_step_s": ref_t,
+            "mesh": dist_mesh(world), "k_placements": k_place}
+
+
+def dist_kernel_refusal(torch, SH, M, fops, world: int) -> str:
+    """16e: a kernel wrapper given a DTensor raises."""
+    mesh = M.make_mesh({"data": world})
+    q = SH.place(torch.randn(world, 4, 128, 64, device="cuda",
+                             dtype=torch.bfloat16), ("data",), mesh)
+    try:
+        fops.attention(q, q, q, causal=True)
+    except TypeError as e:
+        return str(e)
+    fail("phase 16e: flash attention took a DTensor")
+
+
+def phase16_rank(rank: int, world: int, base_loss, ckpt_dir: str) -> dict:
+    """One rank of phase 16 (a spawned process on card ``rank``)."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.analysis import collectives as CO
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mlstm_scan import ops as mops
+    from repro_torch.kernels.page_clock import ops as pc_ops
+    from repro_torch.kernels.slstm_scan import ops as slops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.zns_alloc import ops as zops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import model as MDL
+    from repro_torch.models import transformer as T
+    from repro_torch.train import data as TD
+    from repro_torch.train import grad as G
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train.pipeline import (pipeline_apply,
+                                            pipeline_utilization)
+    kernels = {"flash_attention": fops, "decode_attention": dops,
+               "ssm_scan": sops, "mlstm_scan": mops, "slstm_scan": slops}
+    others = {"zns_alloc": zops, "page_clock": pc_ops}
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    timed("16a", lambda: dist_psum(torch, dist, G, M, world))
+    timed("16b", lambda: dist_pipeline(torch, M, pipeline_apply,
+                                       pipeline_utilization, world))
+    reset_all(kernels, others)
+    phi3 = get_arch("phi3-mini-3.8b")
+    timed("16c_check", lambda: dist_train_check(
+        torch, SH, M, MDL, OPT, TD, serve, phi3, world, ckpt_dir))
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("16c", lambda: dist_train_timed(
+        torch, SH, M, MDL, OPT, TD, CO, serve, phi3, world, base_loss))
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("16d", lambda: dist_decode(torch, SH, M, T, serve,
+                                     get_arch("granite-3-8b"), world))
+    out["counts"] = all_counts(kernels, others)
+    out["16e"] = dist_kernel_refusal(torch, SH, M, fops, world)
+    out["secs"] = secs
+    out["card"] = torch.cuda.get_device_name(torch.cuda.current_device())
+    return out
+
+
+def phase_distributed(torch, base) -> None:
+    """16: spawn one process a card and check what they return.  ``base``:
+    the unsharded loss of 16c's first batch where it is known (15b's first
+    loss, on one card), else None and rank 0 computes it."""
+    import shutil
+    from repro_torch.launch import mesh as M
+    world = min(4, torch.cuda.device_count())
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        res = M.run_ranks(phase16_rank, world, base,
+                          str(work / "ckpt"), backend="nccl",
+                          work_dir=str(work), timeout_s=600)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 16: {e}")
+    wall = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    r = res[0]
+    log(f"phase 16: {world} process(es), one a card ({r['card']} x "
+        f"{torch.cuda.device_count()} visible), NCCL; wall {wall:.1f} s "
+        f"(process start and NCCL set-up included); each check's s on "
+        f"rank 0: { {k: round(v, 3) for k, v in r['secs'].items()} }")
+    if world == 1:
+        log("phase 16: one card: world size 1, so no collective crossed "
+            "cards")
+    a = r["16a"]
+    check(a["rel_err"] <= DIST_TOL["psum"],
+          f"phase 16a: hierarchical vs flat all-reduce rel {a['rel_err']}")
+    log(f"phase 16a: hierarchical_psum over (pod, data) = "
+        f"({a['mesh']['pod']}, {a['mesh']['data']}) == flat all_reduce "
+        f"(max rel {a['rel_err']:.3e}) on a {a['bytes']} B f32 buffer; "
+        f"flat {min(a['flat']['ms']):.4f} ms ({a['flat']['bus_gb_s']:.2f} "
+        f"bus GB/s), hierarchical {min(a['hier']['ms']):.4f} ms "
+        f"({a['hier']['bus_gb_s']:.2f} bus GB/s); runs (ms) flat "
+        f"{a['flat']['ms']}, hierarchical {a['hier']['ms']}")
+    b = r["16b"]
+    check(b["max_abs_err"] <= DIST_TOL["pipe"],
+          f"phase 16b: pipeline vs sequential {b['max_abs_err']}")
+    log(f"phase 16b: pipeline_apply over {world} stage(s), width "
+        f"{PIPE_WIDTH}, M {PIPE_MICRO}, B {PIPE_BATCH}: == the stages in "
+        f"sequence (max abs {b['max_abs_err']:.3e}), {b['ms']:.4f} ms a "
+        f"call; pipeline_utilization {b['utilization']:.4f}")
+    c = r["16c_check"]
+    check(all(v <= DIST_TOL["scalar"] for v in c["errs"].values())
+          and all(c[k] <= DIST_TOL["leaf"] for k in (
+              "leaf", "moments", "params_eps", "moments_eps"))
+          and math.isfinite(c["params"]),
+          f"phase 16c: sharded vs unsharded {c['errs']}, gradient leaf "
+          f"{c['leaf']}, after two steps parameters {c['params']} "
+          f"moments {c['moments']}, with eps 1e-3 parameters "
+          f"{c['params_eps']} moments {c['moments_eps']}")
+    check(c["restore_bit_equal"] and c["restore_mesh"] == {
+        "data": 1, "model": world},
+          f"phase 16c: restore on {c['restore_mesh']}: bit equal "
+          f"{c['restore_bit_equal']}")
+    log(f"phase 16c: phi3-mini-3.8b cut to depth {DIST_CUT[0]} (f32, TF32 "
+        f"off, B {DIST_CUT[1]} x S {DIST_CUT[2]}) on (data, model) = "
+        f"{tuple(c['saved_mesh'].values())}: sharded vs one card's "
+        f"unsharded rel: gradients (worst leaf) {c['leaf']:.3e}, two "
+        f"train steps' metrics {c['errs']}, after them the worst moment "
+        f"{c['moments']:.3e} and parameter {c['params']:.3e} (not held: "
+        f"AdamW's eps 1e-8); with eps 1e-3, moment "
+        f"{c['moments_eps']:.3e}, parameter {c['params_eps']:.3e}; saved "
+        f"there and restored by "
+        f"restore(shardings=) on {tuple(c['restore_mesh'].values())}: "
+        f"parameters and moments bit for bit")
+    t = r["16c"]
+    import statistics
+    step_s = statistics.median(t["times"][1:])
+    tokens = t["batch"] * TRAIN_SEQ
+    check(abs(t["losses"][0] - t["base_loss"]) <= DIST_TOL["loss"],
+          f"phase 16c: first loss {t['losses'][0]} vs unsharded "
+          f"{t['base_loss']}")
+    check(all(math.isfinite(x) for x in t["losses"]),
+          f"phase 16c: losses {t['losses']}")
+    log(f"phase 16c: phi3-mini-3.8b as published, bf16, remat, qchunk, on "
+        f"(data, model) = {tuple(t['mesh'].values())}: global B "
+        f"{t['batch']} x S {TRAIN_SEQ}; losses {t['losses']} (first vs "
+        f"unsharded {t['base_loss']!r}); step s {t['times']} (first = "
+        f"warm-up with its collectives recorded); median "
+        f"{step_s * 1e3:.3f} ms a step = {tokens / step_s:.1f} tokens/s; "
+        f"peak device memory rank 0 {t['peak'] / 2**30:.3f} GiB; "
+        f"collectives a step {t['collective_counts']}, bytes a device "
+        f"{t['collectives']}")
+    d = r["16d"]
+    check(d["rel_err"] <= DIST_TOL["decode"],
+          f"phase 16d: sharded decode logits rel {d['rel_err']}")
+    log(f"phase 16d: granite-3-8b as published on (data, model) = "
+        f"{tuple(d['mesh'].values())}, K cache placements "
+        f"{d['k_placements']}: {DIST_DECODE[0]} x {DIST_DECODE[1]} "
+        f"prefill + {DIST_DECODE[2]} decode steps, logits within rel "
+        f"{d['rel_err']:.3e} of one card unsharded; decode "
+        f"{statistics.median(d['step_s']) * 1e3:.3f} ms a step sharded "
+        f"(steps {d['step_s']}), "
+        f"{statistics.median(d['unsharded_step_s']) * 1e3:.3f} ms "
+        f"unsharded")
+    for rank, rr in enumerate(res):
+        check(all(v == 0 for v in rr["counts"].values()),
+              f"phase 16e: rank {rank} launched {rr['counts']}")
+    log(f"phase 16e: every rank's 16c and 16d launched no kernel "
+        f"({res[0]['counts']}); a kernel given a DTensor raised: "
+        f"{r['16e']}")
+
 
 def gpu_name_and_limit() -> str:
     proc = subprocess.run(
@@ -4174,7 +4634,8 @@ def main() -> int:
     # in a train step, none silently under autograd (15d)
     t0 = time.perf_counter()
     phase_train_vs_cpu(torch, TT, MDL, OPT, TD, get_arch, kernels, others)
-    phase_train_phi3(torch, serve, MDL, OPT, TD, PHI3, kernels, others)
+    phi3_run = phase_train_phi3(torch, serve, MDL, OPT, TD, PHI3, kernels,
+                                others)
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_xlstm(torch, launch_train, MDL, kernels, others)
@@ -4182,6 +4643,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_autograd_guard(torch, fops)
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
+    # 16. the distributed paths: one process a card over NCCL; with one
+    # card, 16c's first batch is 15b's, and so is its unsharded loss
+    t0 = time.perf_counter()
+    one = torch.cuda.device_count() == 1 and phi3_run["batch"] == TRAIN_BATCH
+    phase_distributed(torch, phi3_run["losses"][0] if one else None)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_t = timings[0]
@@ -4324,5 +4792,20 @@ def main() -> int:
     return 0
 
 
+def phase16_alone() -> int:
+    """``--phase16``: phase 16 alone, on every visible card (world
+    ``min(4, cards)``), for measuring the distributed paths on four."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    log(f"torch {torch.__version__}, cuda {torch.version.cuda}; "
+        f"{gpu_name_and_limit()} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    phase_distributed(torch, None)
+    log(f"phase 16 alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase16_alone() if sys.argv[1:] == ["--phase16"] else main())

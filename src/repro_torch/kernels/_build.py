@@ -152,3 +152,17 @@ def refuse_autograd(kernel: str, plain: str, *tensors) -> None:
             f"{kernel}: the CUDA kernel has no backward and an input "
             f"requires grad; use {plain} (plain PyTorch under autograd), "
             f"or call it under torch.no_grad()")
+
+
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise where a launch of ``kernel`` would get a placed tensor (a
+    DTensor, ``launch.sharding``): a kernel reads one device's memory
+    through raw pointers, and a DTensor's pointer is its local shard, not
+    the tensor.  The distributed paths run the plain versions; kernels on
+    local shards are later work."""
+    from repro_torch.models.shards import is_dtensor
+    for t in tensors:
+        if is_dtensor(t):
+            raise TypeError(f"{kernel}: the CUDA kernel takes plain "
+                            f"tensors, not a DTensor; run the plain "
+                            f"version (impl=\"ref\") on a sharded path")

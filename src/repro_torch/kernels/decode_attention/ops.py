@@ -35,7 +35,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_dense, decode_attention_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 MAX_HEAD_DIM = 128
@@ -175,15 +176,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     arguments, are kept per argument signature: a decode step calls this
     once per layer with the same one, and its host time is the step's."""
     global launches
+    if impl == "dense":
+        _check(q, k, v, lengths)
+        return decode_attention_dense(q, k, v, lengths)
     sig = (q.shape, k.shape, v.shape, lengths.shape, q.dtype, k.dtype,
-           v.dtype, q.device, k.device, v.device, lengths.device)
+           v.dtype, q.device, k.device, v.device, lengths.device, impl)
     plan = _plans.get(sig)
     if plan is None:
         _check(q, k, v, lengths)
         if len(_plans) > 4096:
             _plans.clear()
         plan = _plans[sig] = (_plan(q, k) if q.device.type == "cuda"
-                              else ())
+                              and impl == "kernel" else ())
     if impl == "ref" or (impl == "kernel" and q.device.type == "cpu"):
         return decode_attention_ref(q, k, v, lengths)
     if impl != "kernel":
@@ -191,6 +195,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, "
                          f"not {q.device}")
+    _build.refuse_dtensor("decode_attention", q, k, v, lengths)
     _build.refuse_autograd("decode_attention", 'impl="ref"', q, k, v)
     if lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32, got {lengths.dtype}")

@@ -101,3 +101,29 @@ def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
               for i, (_, _, a) in enumerate(parts))
     inv = torch.where(total == 0.0, 0.0, 1.0 / total)
     return (acc * inv[..., None]).reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention_dense(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor
+                           ) -> torch.Tensor:
+    """The same function in one pass over the whole cache (the reference's
+    ``impl="xla"`` decode, ``repro.kernels.decode_attention.ref``): f32
+    scores for every row, masked, and the softmax written out as a max, a
+    sum of exponentials and a product with V -- over a sequence-sharded
+    cache (a DTensor) each is a local reduction plus a small all-reduce,
+    where the tiled :func:`decode_attention_ref` would slice the sharded
+    rows.  Masked rows contribute exactly 0, and ``lengths[b] == 0``
+    gives 0, as in :func:`decode_attention_ref`."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    qf = q.float().reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k.float()) * (d ** -0.5)
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[None, :] < lengths.long()[:, None])[:, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.where(mask, torch.exp(scores - scores.amax(-1, keepdim=True)),
+                    0.0)
+    l = p.sum(-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    out = out / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)

@@ -109,6 +109,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cpu or cuda tensors, not "
                          f"{q.device}")
+    _build.refuse_dtensor("attention", q, k, v)
     _build.refuse_autograd("attention", 'impl="qchunk" or impl="ref"', q, k,
                            v)
     for name, t in (("q", q), ("k", k), ("v", v)):

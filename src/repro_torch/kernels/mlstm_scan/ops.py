@@ -90,6 +90,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan runs on cpu or cuda tensors, not "
                          f"{q.device}")
+    _build.refuse_dtensor("mlstm_scan", q, k, v, log_i, log_f)
     _build.refuse_autograd("mlstm_scan", 'impl="ref"', q, k, v, log_i,
                            log_f)
     b, s, h, p = q.shape

@@ -108,6 +108,7 @@ def simulate_fleet(ops: torch.Tensor, luns: torch.Tensor,
                                   n_luns, n_channels)
     if impl != "kernel":
         raise ValueError(f"unknown page_clock impl: {impl}")
+    _build.refuse_dtensor("page_clock", ops, luns, channels, valid)
     if dev.type != "cuda":
         raise ValueError(f"page_clock runs on cpu or cuda tensors, not "
                          f"{dev}")

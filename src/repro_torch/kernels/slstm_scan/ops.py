@@ -87,6 +87,7 @@ def slstm_scan(pre_x: torch.Tensor, r_rec: torch.Tensor, *,
     if pre_x.device.type != "cuda":
         raise ValueError(f"slstm_scan runs on cpu or cuda tensors, not "
                          f"{pre_x.device}")
+    _build.refuse_dtensor("slstm_scan", pre_x, r_rec)
     _build.refuse_autograd("slstm_scan", 'impl="ref"', pre_x, r_rec)
     b, s, d4 = pre_x.shape
     d = d4 // 4

@@ -102,6 +102,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cpu or cuda tensors, not "
                          f"{x.device}")
+    _build.refuse_dtensor("ssm_scan", x, dt, b, c, a, d)
     _build.refuse_autograd("ssm_scan", 'impl="ref"', x, dt, b, c, a, d)
     bh, t, p = x.shape
     n = b.shape[-1]

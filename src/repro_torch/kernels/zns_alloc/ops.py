@@ -117,6 +117,7 @@ def _sig(*tensors) -> tuple:
 
 
 def _check_common(named, device) -> None:
+    _build.refuse_dtensor("zns_alloc", *(t for _, t in named))
     for name, t in named:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -254,6 +255,7 @@ def _check_fused(wear, avail, lanes, n_groups: int, per_group: int,
                          f"per_group {per_group}]")
     if wear.device.type != "cuda":
         return                 # the plain version takes any grid
+    _build.refuse_dtensor("zns_alloc", wear, avail, lanes)
     if not 1 <= n_groups <= MAX_GROUPS:
         raise ValueError(f"n_groups {n_groups} must be in [1, "
                          f"{MAX_GROUPS}]: the kernel runs a warp per group")

@@ -32,6 +32,7 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import (
     attention as flash_attention)
 from repro_torch.models import layers as L
+from repro_torch.models import shards
 
 
 def attn_init(generator, d_model: int, n_heads: int, n_kv_heads: int,
@@ -61,6 +62,8 @@ def write_rows(c: torch.Tensor, new: torch.Tensor,
     ``pos`` outside ``[0, max_seq)`` is dropped, like the reference's
     ``.at[rows, pos].set(mode="drop")`` -- without a host sync: the row at
     the clamped index is rewritten with its old value."""
+    if shards.is_dtensor(c):
+        return shards.write_rows(c, new, pos, write_rows)
     max_seq = c.shape[1]
     rows = torch.arange(pos.shape[0], device=pos.device)
     keep = ((pos >= 0) & (pos < max_seq)).view(-1, *[1] * (new.dim() - 1))
@@ -79,11 +82,31 @@ def cache_append(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
     return cache
 
 
+def _attend(q, k, v, *, causal: bool, impl: str) -> torch.Tensor:
+    """Flash attention over ``(B, H, S, D)``; placed q/k/v run the plain
+    versions on each rank's shards (:func:`shards.on_shards`), and the
+    kernel takes them as they are (its wrapper refuses a DTensor)."""
+    def fn(q, k, v):
+        return flash_attention(q, k, v, causal=causal, impl=impl)
+    if impl == "kernel":
+        return fn(q, k, v)
+    return shards.on_shards(fn, q, k, v, 1)
+
+
+def _decode(q, k, v, lengths, *, impl: str) -> torch.Tensor:
+    """Decode attention of q ``(B, H, D)`` over a ``(B, S, Hkv, D)`` cache
+    (see :func:`_attend`)."""
+    def fn(q, k, v, n):
+        return decode_attention(q, k, v, n, impl=impl)
+    if impl == "kernel":
+        return fn(q, k, v, lengths)
+    return shards.on_shards(fn, q, k, v, 2, lengths)
+
+
 def _project(p, x, n_heads, n_kv_heads, head_dim):
-    lead = x.shape[:-1]
-    q = (x @ p["wq"]).view(*lead, n_heads, head_dim)
-    k = (x @ p["wk"]).view(*lead, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).view(*lead, n_kv_heads, head_dim)
+    q = shards.heads(x @ p["wq"], n_heads, head_dim, n_kv_heads)
+    k = shards.heads(x @ p["wk"], n_kv_heads, head_dim)
+    v = shards.heads(x @ p["wv"], n_kv_heads, head_dim)
     return q, k, v
 
 
@@ -100,8 +123,8 @@ def attn_forward(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
                else torch.arange(s, device=x.device))
         q = L.apply_rope(q, pos[..., None], rope_theta)
         k = L.apply_rope(k, pos[..., None], rope_theta)
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal, impl=impl)
+    o = _attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, impl=impl)
     return o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
 
 
@@ -116,10 +139,10 @@ def attn_prefill(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
     pos = torch.arange(s, device=x.device)[:, None]      # (S, 1): per head
     qr = L.apply_rope(q, pos, rope_theta)                 # (B, S, H, D)
     kr = L.apply_rope(k, pos, rope_theta)
-    o = flash_attention(qr.transpose(1, 2), kr.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, impl=impl)
-    cache["k"][:, :s] = kr.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    o = _attend(qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2),
+                causal=True, impl=impl)
+    shards.write_prefix(cache["k"], kr)
+    shards.write_prefix(cache["v"], v)
     out = o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
     return out, cache
 
@@ -135,7 +158,7 @@ def attn_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     q = L.apply_rope(q[:, :, None, :], pos_b, rope_theta)[:, :, 0]
     k = L.apply_rope(k[:, :, None, :], pos_b, rope_theta)[:, :, 0]
     cache = cache_append(cache, k, v, pos)
-    o = decode_attention(q, cache["k"], cache["v"], pos + 1, impl=impl)
+    o = _decode(q, cache["k"], cache["v"], pos + 1, impl=impl)
     return o.reshape(b, n_heads * head_dim) @ p["wo"], cache
 
 
@@ -161,17 +184,16 @@ def memory_kv(p, memory: torch.Tensor, *, n_kv_heads: int,
               head_dim: int) -> Dict[str, torch.Tensor]:
     """The cross-attention K/V of ``memory`` (B, M, d): ``{"k", "v"}`` of
     shape ``(B, M, Hkv, D)`` in the projection's dtype."""
-    b, m, _ = memory.shape
-    return {"k": _matmul(memory, p["wk"]).view(b, m, n_kv_heads, head_dim),
-            "v": _matmul(memory, p["wv"]).view(b, m, n_kv_heads, head_dim)}
+    return {name: shards.heads(_matmul(memory, p[f"w{name}"]), n_kv_heads,
+                               head_dim) for name in ("k", "v")}
 
 
 def _cross_attend(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], *,
                   n_heads: int, head_dim: int, impl: str) -> torch.Tensor:
     b, s, _ = x.shape
-    q = (x @ p["wq"]).view(b, s, n_heads, head_dim)
-    o = flash_attention(q.transpose(1, 2), kv["k"].transpose(1, 2),
-                        kv["v"].transpose(1, 2), causal=False, impl=impl)
+    q = shards.heads(x @ p["wq"], n_heads, head_dim, kv["k"].shape[2])
+    o = _attend(q.transpose(1, 2), kv["k"].transpose(1, 2),
+                kv["v"].transpose(1, 2), causal=False, impl=impl)
     return o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
 
 
@@ -213,10 +235,9 @@ def cross_decode(p, x: torch.Tensor, memory_kv: Dict[str, torch.Tensor], *,
     int32, every entry M (made here when not given: a caller that steps
     many times keeps one buffer)."""
     b = x.shape[0]
-    q = (x @ p["wq"]).view(b, n_heads, head_dim)
+    q = shards.heads(x @ p["wq"], n_heads, head_dim, n_kv_heads)
     if lengths is None:
         lengths = torch.full((b,), memory_kv["k"].shape[1],
                              dtype=torch.int32, device=x.device)
-    o = decode_attention(q, memory_kv["k"], memory_kv["v"], lengths,
-                         impl=impl)
+    o = _decode(q, memory_kv["k"], memory_kv["v"], lengths, impl=impl)
     return o.reshape(b, n_heads * head_dim) @ p["wo"]

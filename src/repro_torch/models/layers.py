@@ -17,6 +17,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import shards
+
 
 def _normal(shape, generator: Optional[torch.Generator], device,
             scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -151,7 +153,11 @@ def embedding_init(generator, vocab: int, d: int, *, device,
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """The rows of ``table`` at ``tokens``.  ``F.embedding`` rather than
     ``table[tokens]``: the same gather forward, and a backward that sums a
-    repeated token's gradients in a fixed order on CUDA."""
+    repeated token's gradients in a fixed order on CUDA.  A
+    vocabulary-sharded table (a DTensor) takes :func:`shards.embed`."""
+    if shards.is_dtensor(table) and any(p.is_shard(0)
+                                        for p in table.placements):
+        return shards.embed(tokens, table)
     return torch.nn.functional.embedding(tokens, table)
 
 
@@ -210,7 +216,12 @@ def chunked_remat_scan(step: Callable, carry, xs, chunk: int
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
-    """logits (..., V) f32, labels (...) int: the mean NLL."""
+    """logits (..., V) f32, labels (...) int: the mean NLL.  Logits
+    sharded on the vocabulary (a DTensor, from a vocabulary-sharded
+    unembedding) take :func:`shards.cross_entropy`."""
+    if shards.is_dtensor(logits) and any(
+            p.is_shard(logits.dim() - 1) for p in logits.placements):
+        return shards.cross_entropy(logits, labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long()).squeeze(-1)
     return (logz - gold).mean()

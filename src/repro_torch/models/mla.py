@@ -40,6 +40,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import (
     attention as flash_attention)
 from repro_torch.models import layers as L
+from repro_torch.models import shards
 from repro_torch.models.attention import write_rows
 
 
@@ -132,8 +133,8 @@ def mla_prefill(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     s = x.shape[1]
     c_kv, k_rope = _latent(p, x, cfg, torch.arange(s, device=x.device))
     out = _attend(p, x, cfg, c_kv, k_rope, True, impl)
-    cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, :s] = k_rope.to(cache["k_rope"].dtype)
+    shards.write_prefix(cache["c_kv"], c_kv)
+    shards.write_prefix(cache["k_rope"], k_rope)
     return out, cache
 
 

@@ -17,6 +17,13 @@ trains through no Pallas kernel (the kernels have no backward, and their
 wrappers refuse inputs that require grad).  The train step makes the
 model's parameters trainable (``transformer.set_trainable``) and updates
 them in place.
+
+Distributed: the same step runs on a model, batch and optimizer state
+placed on a ``DeviceMesh`` by ``launch.sharding`` (DTensors); it runs
+under ``implicit_replication`` (a plain tensor beside a DTensor counts
+as replicated), DTensor's sharding propagation calls the collectives,
+and ``metrics`` come back whole.  The plain paths only: no kernel takes
+a DTensor.
 """
 
 from __future__ import annotations
@@ -24,9 +31,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import layers as L
+from repro_torch.models import shards
 from repro_torch.models import transformer as T
 from repro_torch.train import grad as G
 from repro_torch.train import optimizer as OPT
@@ -70,13 +79,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OPT.AdamWConfig,
     def train_step(state, opt_state, batch):
         model, ef = state if compress_grads else (state, None)
         T.set_trainable(model)
-        loss, grads, metrics = G.accumulate_grads(lfn, model, batch,
-                                                  n_micro)
-        if compress_grads:
-            grads, ef = G.compress_grads_ef(grads, ef, T.leaf_groups(model))
-        model, opt_state, opt_metrics = OPT.update(opt_cfg, model, grads,
-                                                   opt_state)
-        metrics = dict(metrics, loss=loss, **opt_metrics)
+        with implicit_replication():
+            loss, grads, metrics = G.accumulate_grads(lfn, model, batch,
+                                                      n_micro)
+            if compress_grads:
+                grads, ef = G.compress_grads_ef(grads, ef,
+                                                T.leaf_groups(model))
+            model, opt_state, opt_metrics = OPT.update(opt_cfg, model,
+                                                       grads, opt_state)
+            metrics = {k: shards.whole(v) for k, v in
+                       dict(metrics, loss=loss, **opt_metrics).items()}
         return ((model, ef) if compress_grads else model), opt_state, \
             metrics
     return train_step
@@ -108,11 +120,56 @@ def memory_len(cfg: ArchConfig, shape: ShapeCell) -> int:
     return 0
 
 
+# --------------------------------------------------------------------- #
+# stand-ins on the meta device (the dry run's inputs)
+# --------------------------------------------------------------------- #
+def param_specs(cfg: ArchConfig) -> T.Transformer:
+    """The model on the ``meta`` device: every parameter's shape and
+    dtype, nothing drawn or allocated (``transformer.params_to_tree``
+    gives the reference's ``param_specs`` tree)."""
+    return T.init_params(cfg, device="meta")
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_seq: int,
+                mem_len: int = 0) -> Dict[str, torch.Tensor]:
+    """:func:`transformer.init_caches`' caches on the ``meta`` device."""
+    return T.init_caches(cfg, batch, max_seq, memory_len=mem_len,
+                         device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell) -> Dict:
+    """Every input of the cell's step but the model and its optimizer
+    state, on the ``meta`` device: ``{"batch": {"tokens", "labels"[,
+    "memory"]}}`` to train, ``{"tokens", "caches"[, "memory"]}`` to
+    prefill, ``{"token", "caches", "pos"}`` to decode."""
+    b, s = shape.global_batch, shape.seq_len
+    mem = memory_len(cfg, shape)
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    memory = ({"memory": meta((b, mem, cfg.d_model), torch.bfloat16)}
+              if mem else {})
+    if shape.kind == "train":
+        return {"batch": {"tokens": meta((b, s)), "labels": meta((b, s)),
+                          **memory}}
+    if shape.kind == "prefill":
+        return {"tokens": meta((b, s)),
+                "caches": cache_specs(cfg, b, s, mem), **memory}
+    if shape.kind == "decode":
+        return {"token": meta((b,)), "caches": cache_specs(cfg, b, s, mem),
+                "pos": meta((b,))}
+    raise ValueError(shape.kind)
+
+
+def opt_state_specs(cfg: ArchConfig) -> OPT.AdamWState:
+    """The AdamW state of :func:`param_specs`' model on ``meta``."""
+    return OPT.init(param_specs(cfg))
+
+
 def param_count(cfg: ArchConfig) -> int:
     """Parameters of ``cfg``, counted on the ``meta`` device (nothing is
     allocated)."""
-    model = T.init_params(cfg, device="meta")
-    return sum(p.numel() for p in model.parameters())
+    return sum(p.numel() for p in param_specs(cfg).parameters())
 
 
 def active_param_count(cfg: ArchConfig) -> int:

@@ -908,13 +908,6 @@ def _norm_from(cfg: ArchConfig, tree, device) -> Norm:
                 _from_numpy(tree["b"], device))
 
 
-def _norm_to(norm: Norm, bf16_dtype):
-    if norm.kind == "rmsnorm":
-        return _to_numpy(norm.w, bf16_dtype)
-    return {"w": _to_numpy(norm.w, bf16_dtype),
-            "b": _to_numpy(norm.b, bf16_dtype)}
-
-
 def _rep(tree, r: int):
     """Repetition ``r`` of a (sub)tree of stacked leaves."""
     if isinstance(tree, dict):
@@ -926,12 +919,6 @@ def _tree_from(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_from(v, device) for k, v in tree.items()}
     return _from_numpy(tree, device)
-
-
-def _tree_to(tree, bf16_dtype):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, bf16_dtype) for k, v in tree.items()}
-    return _to_numpy(tree, bf16_dtype)
 
 
 def _block_from(cfg: ArchConfig, kind: str, moe: bool, p, device) -> Block:
@@ -973,32 +960,43 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda") -> Transformer:
                        if encoder else None)
 
 
-def params_to_numpy(model: Transformer, bf16_dtype=None):
-    """The inverse of :func:`params_from_numpy`: the reference's tree of
-    numpy arrays (see :func:`_to_numpy` for bf16)."""
+def params_to_tree(model: Transformer, leaf: Callable = lambda t: t,
+                   stack: Callable = torch.stack):
+    """The port's parameters in the reference's tree (per-slot leaves
+    stacked over repetitions, ``"first"``, ``"encoder"``, ...): each
+    parameter through ``leaf``, a slot's or the encoder's repetitions
+    through ``stack`` (a list of ``leaf``'s results).  On the ``meta``
+    device the defaults give the reference's ``param_specs`` tree."""
     cfg = model.cfg
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        return leaf(t)
+
+    def norm(n: Norm):
+        return tree(n.w) if n.kind == "rmsnorm" else tree({"w": n.w,
+                                                           "b": n.b})
 
     def stacked(trees):
         if isinstance(trees[0], dict):
             return {k: stacked([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
+        return stack(trees)
 
     def one(b: Block):
-        p = {"norm1": _norm_to(b.norm1, bf16_dtype),
-             "mixer": {KINDS[b.kind].mixer_key: _tree_to(dict(b.mixer),
-                                                         bf16_dtype)}}
+        p = {"norm1": norm(b.norm1),
+             "mixer": {KINDS[b.kind].mixer_key: tree(dict(b.mixer))}}
         if b.cross is not None:
-            p["mixer"]["cross"] = _tree_to(dict(b.cross), bf16_dtype)
-            p["mixer"]["norm_c"] = _norm_to(b.norm_c, bf16_dtype)
+            p["mixer"]["cross"] = tree(dict(b.cross))
+            p["mixer"]["norm_c"] = norm(b.norm_c)
         if b.ffn is not None:
-            p["norm2"] = _norm_to(b.norm2, bf16_dtype)
-            p["ffn"] = _tree_to(b.ffn.tree() if isinstance(b.ffn, MoEFFN)
-                                else dict(b.ffn), bf16_dtype)
+            p["norm2"] = norm(b.norm2)
+            p["ffn"] = tree(b.ffn.tree() if isinstance(b.ffn, MoEFFN)
+                            else dict(b.ffn))
         return p
 
     blocks = list(model.blocks)
-    out = {"embed": _to_numpy(model.embed, bf16_dtype),
-           "final_norm": _norm_to(model.final_norm, bf16_dtype)}
+    out = {"embed": leaf(model.embed), "final_norm": norm(model.final_norm)}
     if cfg.first_layer_dense:
         out["first"] = one(blocks.pop(0))
     n = len(cfg.pattern)
@@ -1007,13 +1005,65 @@ def params_to_numpy(model: Transformer, bf16_dtype=None):
                     for j in range(n)]
     if cfg.encoder_layers:
         out["encoder"] = stacked([one(b) for b in model.encoder])
-        out["enc_norm"] = _norm_to(model.enc_norm, bf16_dtype)
+        out["enc_norm"] = norm(model.enc_norm)
+    return out
+
+
+def params_to_numpy(model: Transformer, bf16_dtype=None):
+    """The inverse of :func:`params_from_numpy`: the reference's tree of
+    numpy arrays (see :func:`_to_numpy` for bf16)."""
+    return params_to_tree(model, lambda t: _to_numpy(t, bf16_dtype),
+                          np.stack)
+
+
+def leaf_names(model: Transformer) -> Dict[str, List[str]]:
+    """For each leaf of the reference's parameter tree (its path, dict
+    keys and list indices joined by ``/``), the names in
+    ``model.named_parameters()`` of the parameters it holds: a stacked
+    leaf's repetitions in order, any other leaf's one parameter."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    tree = params_to_tree(model, lambda t: _Names([names[id(t)]]),
+                          lambda ts: _Names(sum((t.names for t in ts), [])))
+    return {k: v.names for k, v in tree_paths(tree).items()}
+
+
+class _Names:
+    """A leaf of :func:`leaf_names`' tree (a list would be a subtree)."""
+
+    def __init__(self, names: List[str]):
+        self.names = names
+
+
+def tree_paths(tree, prefix: str = "") -> Dict:
+    """``{path: leaf}`` of a tree of dicts, lists and tuples, the path its
+    keys and indices joined by ``/`` -- the reference's
+    ``launch.sharding._path_str`` -- with a NamedTuple field written as
+    JAX writes it, ``.name``."""
+    if isinstance(tree, dict):
+        items = [(str(k), v) for k, v in tree.items()]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return {prefix: tree}
+    out: Dict = {}
+    for k, v in items:
+        out.update(tree_paths(v, f"{prefix}/{k}" if prefix else k))
     return out
 
 
 def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
                     bf16_dtype=None):
-    """The port's caches in the reference's layout: ``{"slots": [...]}``
+    """:func:`caches_to_tree` as numpy arrays (see :func:`_to_numpy` for
+    bf16)."""
+    return caches_to_tree(cfg, caches, lambda t: _to_numpy(t, bf16_dtype))
+
+
+def caches_to_tree(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
+                   leaf: Callable = lambda t: t):
+    """The port's caches in the reference's layout, each leaf through
+    ``leaf`` (on the ``meta`` device the reference's ``cache_specs``): ``{"slots": [...]}``
     with ``{"kv": {"k", "v"}}`` (leaves ``(reps, B, S, Hkv, D)``) for an
     attention slot, ``{"kv": {"c_kv", "k_rope"}}`` (leaves ``(reps, B, S,
     kv_lora)`` and ``(reps, B, S, rope)``) for an MLA one and
@@ -1033,7 +1083,7 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
         kind = block_kind(cfg, kind)
         k = KINDS[kind]
         return {k.cache_key: {
-            name: _to_numpy(caches[k.flat(name)][idx], bf16_dtype)
+            name: leaf(caches[k.flat(name)][idx])
             for name in k.cache_names}}
 
     out = {"slots": [layer(kind, [where[n_prefix + r * len(cfg.pattern)
@@ -1046,9 +1096,9 @@ def caches_to_numpy(cfg: ArchConfig, caches: Dict[str, torch.Tensor],
         # cross slots
         slots = [j for j, kind in enumerate(cfg.pattern) if kind == "cross"]
         out["memory_kv"] = [
-            {name: _to_numpy(caches[f"memory_{name}"][
-                [r * len(slots) + slots.index(j) for r in range(reps)]],
-                bf16_dtype) for name in ("k", "v")}
+            {name: leaf(caches[f"memory_{name}"][
+                [r * len(slots) + slots.index(j) for r in range(reps)]])
+             for name in ("k", "v")}
             if kind == "cross" else {}
             for j, kind in enumerate(cfg.pattern)]
     return out

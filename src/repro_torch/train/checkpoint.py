@@ -18,7 +18,11 @@ The manager
   and zone resets of the checkpoint cadence are measured -- the paper's
   workload for a training cluster;
 * restores in place: the leaves are read as host numpy arrays and copied
-  into the tree it is given.
+  into the tree it is given;
+* shards: a placed (DTensor) tree is gathered whole on the calling
+  thread and written by rank 0 alone, and a restore places the state
+  on the current mesh by the sharding rules (elastic restore: the mesh
+  may differ from the saver's).
 
 Leaf keys are the reference's ``_key_str`` of the JAX tree path: dict
 keys and list indices joined by ``.``, and a NamedTuple field printed as
@@ -42,11 +46,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.core import SUPERBLOCK, ZNSDevice, zn540
 from repro_torch.core.backend import ZoneBackend, set_stream_class
 from repro_torch.core.elements import ElementSpec
+from repro_torch.models import shards
 from repro_torch.models import transformer as T
 from repro_torch.storage.zonefs import ZoneFS
 from repro_torch.train.optimizer import AdamWState
@@ -59,21 +66,35 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _host(tree):
-    """``tree`` in the reference's nested layout with numpy leaves: a
-    model as ``transformer.params_to_numpy`` gives it (bf16 as uint16),
-    a tensor as its numpy array (bf16 as uint16)."""
+def _host(tree, leaf=None, stack=np.stack):
+    """``tree`` in the reference's nested layout, each tensor through
+    ``leaf``: by default whole, as its numpy array (bf16 as uint16), a
+    model as ``transformer.params_to_numpy`` gives it."""
+    leaf = leaf or (lambda t: T._to_numpy(shards.whole(t)))
     if isinstance(tree, nn.Module):
-        return T.params_to_numpy(tree)
+        return T.params_to_tree(tree, leaf, stack)
     if isinstance(tree, dict):
-        return {k: _host(v) for k, v in tree.items()}
+        return {k: _host(v, leaf, stack) for k, v in tree.items()}
     if _is_namedtuple(tree):
-        return type(tree)(*(_host(v) for v in tree))
+        return type(tree)(*(_host(v, leaf, stack) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_host(v) for v in tree)
+        return type(tree)(_host(v, leaf, stack) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return T._to_numpy(tree)
+        return leaf(tree)
     return np.asarray(tree)
+
+
+def _gather_only(t: torch.Tensor) -> None:
+    """Take part in ``t``'s gather (a collective every rank calls) and
+    keep nothing: a rank that does not write holds no host copy."""
+    shards.whole(t)
+
+
+def _shapes(tree):
+    """``tree``'s leaves as ``meta`` tensors of their whole shapes (no
+    gather)."""
+    return _host(tree, lambda t: torch.empty(t.shape, device="meta"),
+                 torch.stack)
 
 
 def _map_leaves(tree, fn, path: Tuple[str, ...] = ()):
@@ -99,15 +120,28 @@ def _flatten(tree) -> List[Tuple[str, np.ndarray]]:
     return out
 
 
+def _copy_into(p: torch.Tensor, full: torch.Tensor) -> None:
+    """``p`` takes ``full``'s values: a placed ``p`` (a DTensor) its own
+    shard of them, cut locally."""
+    if shards.is_dtensor(p):
+        local = p.to_local()
+        local.copy_(distribute_tensor(
+            full.to(local.device), p.device_mesh, p.placements,
+            src_data_rank=None).to_local())
+    else:
+        p.copy_(full)
+
+
 @torch.no_grad()
 def _assign(like, host):
     """Copy the host tree ``host`` into ``like`` in place; returns the
-    updated ``like`` (numpy leaves of ``like`` are replaced)."""
+    updated ``like`` (numpy leaves of ``like`` are replaced).  A placed
+    leaf takes its shard of the saved whole."""
     if isinstance(like, nn.Module):
         loaded = dict(T.params_from_numpy(like.cfg, host,
                                           device="cpu").named_parameters())
         for name, p in like.named_parameters():
-            p.copy_(loaded[name])
+            _copy_into(p, loaded[name])
         return like
     if isinstance(like, dict):
         return {k: _assign(v, host[k]) for k, v in like.items()}
@@ -116,9 +150,35 @@ def _assign(like, host):
     if isinstance(like, (list, tuple)):
         return type(like)(_assign(v, h) for v, h in zip(like, host))
     if isinstance(like, torch.Tensor):
-        like.copy_(T._from_numpy(host, like.device))
+        _copy_into(like, T._from_numpy(host, "cpu"))
         return like
     return host
+
+
+def _place(tree, shardings):
+    """Place ``tree``'s models and optimizer states on the meshes of
+    ``shardings`` (a ``DeviceMesh``, or a prefix of ``tree`` whose leaves
+    are meshes or None) by the sharding rules, in place
+    (``launch.sharding.shard_model`` / ``shard_opt_state``); a model or
+    state already placed keeps its placement."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch import sharding as SH
+    if shardings is None:
+        return tree
+    if isinstance(shardings, DeviceMesh):
+        if isinstance(tree, nn.Module):
+            placed = any(map(shards.is_dtensor, tree.parameters()))
+            return tree if placed else SH.shard_model(tree, shardings)
+        if isinstance(tree, AdamWState):
+            return SH.shard_opt_state(tree, shardings)
+        if isinstance(tree, dict):
+            return {k: _place(v, shardings) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(_place(v, shardings) for v in tree)
+        return tree
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings.get(k)) for k, v in tree.items()}
+    return type(tree)(_place(v, s) for v, s in zip(tree, shardings))
 
 
 class ZNSTelemetry:
@@ -191,8 +251,17 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, meta: Optional[Dict] = None
              ) -> None:
         """Snapshot ``tree`` at ``step``.  Blocks only for the copy to the
-        host (and for the previous save, if it is still writing)."""
+        host (and for the previous save, if it is still writing).  A
+        placed (sharded) tree is gathered whole here, on the calling
+        thread of every rank -- the writer thread runs no collective --
+        and only rank 0 copies it to the host and writes (and mirrors
+        through ``zns``), so a
+        sharded run's files, bytes and zone traffic are the unsharded
+        run's."""
         self.wait()  # double-buffer: at most one outstanding save
+        if dist.is_initialized() and dist.get_rank() != 0:
+            _host(tree, _gather_only, lambda leaves: None)
+            return
         host = _flatten(_host(tree))
 
         def write() -> None:
@@ -261,13 +330,22 @@ class CheckpointManager:
             shutil.rmtree(sdir)
 
     # ------------------------------------------------------------------ #
-    def restore(self, like: Any, step: Optional[int] = None
-                ) -> Tuple[Any, Dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, Dict]:
         """Load the checkpoint at ``step`` (the latest by default) into
         ``like`` in place -- its models, optimizer states and tensors take
         the saved values; returns (the tree, the saved meta).  Every leaf
-        of ``like`` must be in the checkpoint with its shape."""
+        of ``like`` must be in the checkpoint with its shape.
+
+        Elastic restore: a placed leaf of ``like`` takes its shard of the
+        saved whole, and ``shardings`` (a ``DeviceMesh``, or a prefix of
+        ``like`` with meshes at its leaves) places the restored models
+        and optimizer states on the current mesh by the sharding rules --
+        which need not be the mesh that saved them.  In a process group
+        every rank calls it; it waits for rank 0's outstanding save."""
         self.wait()
+        if dist.is_initialized():
+            dist.barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -286,5 +364,5 @@ class CheckpointManager:
                                  f"{leaf.shape}")
             return arr
 
-        return (_assign(like, _map_leaves(_host(like), load)),
-                manifest["meta"])
+        tree = _assign(like, _map_leaves(_shapes(like), load))
+        return _place(tree, shardings), manifest["meta"]

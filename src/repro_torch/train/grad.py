@@ -1,11 +1,22 @@
-"""Gradient machinery (the port of ``repro.train.grad``'s single-device
-half): microbatch accumulation and int8 compression with error feedback.
+"""Gradient machinery (the port of ``repro.train.grad``): microbatch
+accumulation, int8 compression with error feedback, and the
+pod-hierarchical all-reduce.
 
 Gradients are lists of tensors in the model's ``parameters()`` order
-(``transformer.like`` gives them the parameters' layout).  The
-reference's pod-hierarchical all-reduce (``hierarchical_psum``,
-``make_hierarchical_grad_sync``) needs a mesh: not ported (ROADMAP Queue
-1 item 12).
+(``transformer.like`` gives them the parameters' layout).
+
+* **Gradient accumulation** -- :func:`accumulate_grads` runs the
+  microbatches one backward each; grads are averaged in f32.
+* **Int8 compression with error feedback** -- per reference leaf
+  symmetric quantization; the quantization error is carried in an f32
+  residual and re-added next step.
+* **Pod-hierarchical all-reduce** -- :func:`hierarchical_psum`:
+  reduce-scatter over the in-pod axis, all-reduce over the pod axis,
+  all-gather in-pod, on ``torch.distributed`` (NCCL on the card, gloo
+  on the CPU) over the groups of a ``DeviceMesh``'s axes: the two-level
+  schedule that keeps the slow cross-pod links carrying 1/|in-pod| of
+  the bytes.  :func:`make_hierarchical_grad_sync` averages a manual-DP
+  loop's gradients with it.
 """
 
 from __future__ import annotations
@@ -13,16 +24,29 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.models import shards
 
 
 def _grads(loss: torch.Tensor, params: List[nn.Parameter]
            ) -> List[torch.Tensor]:
     """d loss / d params in each parameter's dtype; zeros for a parameter
-    the loss does not reach (``jax.grad`` gives those)."""
+    the loss does not reach (``jax.grad`` gives those).  A placed
+    parameter's gradient (a DTensor) comes back placed as the parameter
+    is -- its partial sums over the data-parallel axes reduced here, as
+    the reference's sharded step returns gradients in the parameters'
+    sharding -- so the optimizer sees no partial placement."""
     gs = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, gs)]
+    out = []
+    for p, g in zip(params, gs):
+        if g is None:
+            g = torch.zeros_like(p)
+        elif shards.is_dtensor(g) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        out.append(g)
+    return out
 
 
 def accumulate_grads(loss_fn: Callable, model: nn.Module,
@@ -115,3 +139,43 @@ def compress_grads_ef(grads: List[torch.Tensor], ef: List[torch.Tensor],
             # multiply-subtract, rounded once: exact in f64, then f32
             res[i] = (t.double() - q.double() * scale.double()).float()
     return deq, res
+
+
+# --------------------------------------------------------------------- #
+# pod-hierarchical all-reduce
+# --------------------------------------------------------------------- #
+def hierarchical_psum(x: torch.Tensor, mesh, *, in_pod_axis: str = "data",
+                      cross_pod_axis: str = "pod") -> torch.Tensor:
+    """reduce_scatter(in-pod) -> all_reduce(cross-pod) ->
+    all_gather(in-pod) of this rank's ``x``: the sum of ``x`` over both
+    axes of ``mesh``, every rank of them getting it; the cross-pod hop
+    carries 1/|in-pod| of the bytes.  As the reference's ``tiled``
+    collectives require, dim 0 must divide by |in-pod| (nothing is
+    padded)."""
+    n = mesh.size(mesh.mesh_dim_names.index(in_pod_axis))
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not divide by "
+                         f"|{in_pod_axis}| = {n}")
+    in_pod = mesh.get_group(in_pod_axis)
+    part = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                       dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(part, x.contiguous(), group=in_pod)
+    dist.all_reduce(part, group=mesh.get_group(cross_pod_axis))
+    out = torch.empty_like(x)
+    dist.all_gather_into_tensor(out, part, group=in_pod)
+    return out
+
+
+def make_hierarchical_grad_sync(mesh, axes=("pod", "data")):
+    """``sync(grads) -> grads``: each gradient summed by
+    :func:`hierarchical_psum` over ``axes`` (cross-pod, in-pod) and
+    divided by |pod| * |data| -- the mean over the data-parallel ranks of
+    a manual-DP training loop."""
+    names = mesh.mesh_dim_names
+    n = mesh.size(names.index(axes[0])) * mesh.size(names.index(axes[1]))
+
+    def sync(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [hierarchical_psum(g, mesh, in_pod_axis=axes[1],
+                                  cross_pod_axis=axes[0]) / n
+                for g in grads]
+    return sync

@@ -3,6 +3,9 @@
 * **checkpoint/restart**: restore-latest on entry; periodic async save of
   (params, opt_state); manifests are atomic, so a crash at any point
   resumes from the last published step.
+* **elastic restarts**: with ``param_shardings`` / ``opt_shardings`` the
+  restored state is placed on the current mesh, which may differ from
+  the mesh that saved it.
 * **deterministic replay**: the data stream is a pure function of (seed,
   step), so after a restart it continues bit-identically.
 * **straggler detection**: each step's wall time is held against the
@@ -55,16 +58,24 @@ def _device(state) -> torch.device:
 
 def fit(train_step: Callable, params: Any, opt_state: Any, data,
         ckpt: Optional[CheckpointManager], cfg: LoopConfig,
-        *, on_straggler: Optional[Callable[[int, float], None]] = None
+        *, on_straggler: Optional[Callable[[int, float], None]] = None,
+        param_shardings: Any = None, opt_shardings: Any = None
         ) -> LoopResult:
     """Run the loop; ``data.batch_at(step)`` supplies numpy batches, moved
     to the parameters' device.  ``train_step(params, opt_state, batch) ->
-    (params, opt_state, metrics)`` (``models.model.make_train_step``)."""
+    (params, opt_state, metrics)`` (``models.model.make_train_step``).
+    ``param_shardings`` / ``opt_shardings`` (a ``DeviceMesh`` each): the
+    restored state is placed on them by the sharding rules (the elastic
+    restart; ``CheckpointManager.restore(shardings=)``)."""
     device = _device(params)
     start = 0
     restored = None
     if ckpt is not None and ckpt.latest_step() is not None:
-        state, meta = ckpt.restore({"params": params, "opt": opt_state})
+        shard = None
+        if param_shardings is not None:
+            shard = {"params": param_shardings, "opt": opt_shardings}
+        state, meta = ckpt.restore({"params": params, "opt": opt_state},
+                                   shardings=shard)
         params, opt_state = state["params"], state["opt"]
         start = int(meta["step"]) + 1
         restored = start - 1

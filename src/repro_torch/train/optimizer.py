@@ -60,10 +60,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: nn.Module) -> AdamWState:
-    """Zero moments in f32 on the parameters' devices, step 0."""
+    """Zero moments in f32 on the parameters' devices (placed as they are,
+    for parameters placed on a mesh), step 0."""
     def zeros():
-        return T.like(params, [torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device)
+        return T.like(params, [torch.zeros_like(p, dtype=torch.float32)
                                for p in params.parameters()])
     dev = next(params.parameters()).device
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
