@@ -98,11 +98,18 @@ of which stops the run with a non-zero exit when it fails:
     traditional lanes replayed through ``LegacyZNSDevice``, each with its
     dispatch's DLWA.  Every page-granular timing call is one
     ``page_clock`` launch and every legacy selection one ``zns_alloc``
-    row launch (counts zeroed before and read after each section); (h)
-    ``page_clock`` against its plain version, bit for bit, on 16 random
-    padded batches and on a 20,000-request prefix of (a)'s FIXED
-    concurrency-7 contended stream (473,088 requests), then timed on that
-    whole stream beside its bound and the plain loop on the prefix;
+    row launch (counts zeroed before and read after each section), and
+    every device row it steps is one chain a channel (no LUN of these
+    geometries meets two channels; the kernel reports each row's path);
+    (h) ``page_clock`` against its plain version, bit for bit, on both
+    paths: 16 random padded batches stepped whole, 16 partitioned (each
+    LUN on one channel), one of sixteen LUNs a channel, the custom16
+    stream of Fig. 9's P16 S1 (20,000 requests, two LUNs a channel) and a
+    20,000-request prefix of (a)'s FIXED concurrency-7 contended zn540
+    stream (473,088 requests); then timed on that whole stream beside its
+    bound and the plain loop on the prefix, on a random stream of the
+    same length stepped whole, and on a one-channel stream of that length
+    (the step chain's floor a request);
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at the three serving paths' shapes (granite's,
    the Jamba cut's: S 2048, G 8, and the llama4-scout cut's: G 5, 40
@@ -256,9 +263,14 @@ then, with the deepseek-v2 cut freed, cross-attention and the encoder:
     and bf16: the served shapes (B 8, T 2048, H 4, P 384 for
     ``mlstm_scan``, d 768 in 4 heads for ``slstm_scan``), T 1, 37, 129
     and 2047 at B 1-8 and the reduced widths (P 32; d 64), q/k/v as
-    strided views of one projection, the gates as column views; each
-    kernel timed at the served shape beside its device time, plain
-    version and bound (no library call computes either recurrence);
+    strided views of one projection, the gates as column views, the sLSTM
+    on the design its launch plan picks (the tensor-core cluster kernel
+    in bf16 at d 768, ragged T at d 256 and d 1024 in 8 heads, 16 CTAs;
+    the L2 kernel in f32 and at the reduced widths) and on the L2 kernel
+    forced at d 768; each kernel timed at the served shape beside its
+    device time, plain version and bound (no library call computes either
+    recurrence), the sLSTM on both designs and at d 256 (the step
+    chain's floor);
 8g. ``serve.build`` and ``serve.generate`` for xlstm-125m as published
     (12 layers, 3 x (mLSTM, mLSTM, mLSTM, sLSTM), d 768, no FFN;
     145,044,480 parameters from seed 0): 8 prompts of 2048 tokens, 31
@@ -266,7 +278,9 @@ then, with the deepseek-v2 cut freed, cross-attention and the encoder:
     none in decode, no attention, ``ssm_scan``, ``zns_alloc`` or
     ``page_clock`` launch;
 9g. the plain path (``ssm_impl="ref"``: the stepped recurrences),
-    teacher-forced with 8g's tokens: logits and caches held to 8g's;
+    teacher-forced with 8g's tokens: logits and caches held to 8g's; the
+    prefill again with the sLSTM forced onto its L2 kernel, its logits
+    against the plain path's beside 8g's;
 10g. a second timed serve run, one profiled prefill (each scan's device
      time) and one profiled decode step (busy time, device events);
 15. training, which launches no kernel (the reference trains through
@@ -1764,44 +1778,104 @@ class Calls:
         setattr(self.module, self.name, self.inner)
 
 
-def page_clock_batch(torch, np, rng, dev: str):
+def page_clock_batch(torch, np, rng, dev: str, *, chains: bool = False,
+                     n_luns: int = None, n_ch: int = None):
     """A random right-padded request batch (1-64 device rows, 1-5,000
-    requests, every op code, 1-16 LUNs and channels) and its times."""
+    requests, every op code, 1-16 LUNs and channels unless given) and its
+    times.  With ``chains``, every LUN keeps channel ``lun % n_ch``, as in
+    every geometry of the repo, so the kernel steps a chain a channel;
+    else the channels are random and most rows are stepped whole."""
     nd, n = int(rng.integers(1, 65)), int(rng.integers(1, 5001))
-    n_luns, n_ch = int(rng.integers(1, 17)), int(rng.integers(1, 17))
+    n_luns = n_luns or int(rng.integers(1, 17))
+    n_ch = n_ch or int(rng.integers(1, 17))
     lengths = rng.integers(0, n + 1, nd)
     lengths[rng.integers(nd)] = n               # one row unpadded
     t_op = rng.uniform(1e-6, 5e-3, 3).astype(np.float32)
     t_x = np.float32(rng.uniform(1e-6, 1e-4))
     ops_ = rng.integers(0, 3, (nd, n), dtype=np.int32)
     ops_[0, : min(n, 3)] = np.arange(min(n, 3))  # every op code present
-    arrs = [ops_, rng.integers(0, n_luns, (nd, n), dtype=np.int32),
-            rng.integers(0, n_ch, (nd, n), dtype=np.int32),
-            np.arange(n)[None, :] < lengths[:, None]]
+    luns = rng.integers(0, n_luns, (nd, n), dtype=np.int32)
+    chans = (luns % n_ch).astype(np.int32) if chains else rng.integers(
+        0, n_ch, (nd, n), dtype=np.int32)
+    arrs = [ops_, luns, chans, np.arange(n)[None, :] < lengths[:, None]]
     return ([torch.from_numpy(a).to(dev) for a in arrs]
             + [torch.from_numpy(t_op).to(dev), torch.tensor(t_x).to(dev),
                n_luns, n_ch])
 
 
+def merged_stream(torch, P, traces, flash):
+    """``timing``'s round-robin merge of ``traces`` as one device row on
+    the card, and the geometry's times."""
+    ops_, luns, chans, _ = P.timing._merge(traces, True)
+    full = [torch.from_numpy(a)[None].cuda() for a in (ops_, luns, chans)]
+    full.append(torch.ones_like(full[0], dtype=torch.bool))
+    times = [P.timing._t_op(flash, torch.device("cuda")),
+             torch.tensor(flash.t_xfer, dtype=torch.float32, device="cuda"),
+             flash.n_luns, flash.n_channels]
+    return full, times
+
+
+def page_clock_rows(pc_ops, fn):
+    """``fn()``'s result and the rows each of the kernel's paths stepped
+    in it."""
+    before = dict(pc_ops.rows)
+    out = fn()
+    return out, {k: pc_ops.rows[k] - before[k] for k in before}
+
+
 def phase_page_clock(torch, np, P, pc_ops, pc_ref) -> dict:
     """Phase 14 (h): ``page_clock`` against its plain version, bit for
-    bit, on random padded batches and on a prefix of the real FIXED
-    concurrency-7 contended stream of (a); then timed on that whole
-    stream."""
+    bit, on both of its paths: random padded batches stepped whole (LUNs
+    on random channels) and partitioned (every LUN on one channel), a
+    batch of sixteen LUNs a channel (the LUN clocks in shared memory), the
+    whole custom16 stream of Fig. 9's geometry P16 S1 (two LUNs a
+    channel) and a prefix of the real FIXED concurrency-7 contended zn540
+    stream of (a); then timed on that whole stream (a chain a channel),
+    on a random stream of the same length stepped whole (the first
+    design's one chain), and on a one-channel stream of the same length
+    (the step chain's floor: a request's time on one chain)."""
     rng = np.random.default_rng(14)
     before = pc_ops.launches
     n_req = 0
-    for _ in range(PAGE_CLOCK_CASES):
-        args = page_clock_batch(torch, np, rng, "cuda")
-        got = pc_ops.simulate_fleet(*args)
+
+    def plain_equal(args, what, want_rows=None):
+        got, rows = page_clock_rows(pc_ops,
+                                    lambda: pc_ops.simulate_fleet(*args))
         # the plain version on the same inputs, moved to the CPU (the
         # same f32 additions; it steps ~3x faster there than on the card)
         want = pc_ref.simulate_fleet_ref(*[a.cpu() if hasattr(a, "cpu")
                                            else a for a in args])
         check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
-              f"phase 14: page_clock differs from its plain version on a "
-              f"{tuple(args[0].shape)} batch")
+              f"phase 14: page_clock differs from its plain version on "
+              f"{what} {tuple(args[0].shape)}")
+        check(want_rows is None or rows == want_rows,
+              f"phase 14: page_clock stepped {what} {rows}, want "
+              f"{want_rows}")
+        return rows
+
+    rows = {"chains": 0, "whole": 0}
+    for i in range(2 * PAGE_CLOCK_CASES):
+        chains = i % 2 == 1
+        args = page_clock_batch(torch, np, rng, "cuda", chains=chains)
+        r = plain_equal(args, "a random padded batch", {
+            "chains": args[0].shape[0], "whole": 0} if chains else None)
+        rows = {k: rows[k] + r[k] for k in rows}
         n_req += args[0].numel()
+    args = page_clock_batch(torch, np, rng, "cuda", chains=True, n_luns=64,
+                            n_ch=4)
+    plain_equal(args, "sixteen LUNs a channel",
+                {"chains": args[0].shape[0], "whole": 0})
+    n_req += args[0].numel()
+    # custom16 at Fig. 9's P16 S1: eight writers, round-robin
+    flash16 = P.geometry.custom16()
+    dev16 = P.legacy(flash16, P.geometry.ZoneGeometry(parallelism=16,
+                                                      n_segments=1),
+                     P.elements.FIXED, max_active=64)
+    c16, c16_times = merged_stream(
+        torch, P, [dev16.zone_write(z, PAGE_CLOCK_PREFIX // 8, trace=True)
+                   for z in range(8)], flash16)
+    plain_equal(c16 + c16_times, "the custom16 stream",
+                {"chains": 1, "whole": 0})
     # the real stream: FIXED at concurrency 7, host writes + FINISH pads
     flash, zone = P.geometry.zn540()
     q = WORKLOAD_PARAMS["interference"]
@@ -1812,16 +1886,15 @@ def phase_page_clock(torch, np, P, pc_ops, pc_ref) -> dict:
         dev.zone_write(z, fill)
     traces = [dev.zone_write(z, fill, trace=True) for z in range(c, 2 * c)]
     traces += [dev.zone_finish(z, trace=True) for z in range(c)]
-    ops_, luns, chans, _ = P.timing._merge(traces, True)
-    full = [torch.from_numpy(a)[None].cuda() for a in (ops_, luns, chans)]
-    full.append(torch.ones_like(full[0], dtype=torch.bool))
-    times = [P.timing._t_op(flash, torch.device("cuda")),
-             torch.tensor(flash.t_xfer, dtype=torch.float32, device="cuda"),
-             flash.n_luns, flash.n_channels]
+    full, times = merged_stream(torch, P, traces, flash)
     k = PAGE_CLOCK_PREFIX
     prefix = [a[:, :k].contiguous() for a in full]
     got = pc_ops.simulate_fleet(*prefix, *times)
-    got_full = pc_ops.simulate_fleet(*full, *times)
+    got_full, full_rows = page_clock_rows(
+        pc_ops, lambda: pc_ops.simulate_fleet(*full, *times))
+    check(full_rows == {"chains": 1, "whole": 0},
+          f"phase 14: Fig. 4b's stream took {full_rows}, want one chain a "
+          f"channel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = pc_ref.simulate_fleet_ref(*prefix, *times)
@@ -1832,20 +1905,48 @@ def phase_page_clock(torch, np, P, pc_ops, pc_ref) -> dict:
           "phase 14: page_clock differs from its plain version on the "
           "real stream's prefix")
     n = full[0].shape[1]
+    per_channel = torch.bincount(full[2][0].long(),
+                                 minlength=flash.n_channels)
     ms = cuda_ms(torch, lambda: pc_ops.simulate_fleet(*full, *times),
                  iters=10)
     prefix_ms = cuda_ms(torch, lambda: pc_ops.simulate_fleet(*prefix,
                                                              *times))
     dev_us = device_us(torch, lambda: pc_ops.simulate_fleet(*full, *times),
                        "page_clock", reps=5)
+    # the same length stepped whole (random LUNs and channels) and as one
+    # chain (one LUN on one channel)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rnd = [full[0], torch.randint(0, flash.n_luns, (1, n), generator=g,
+                                  device="cuda", dtype=torch.int32),
+           torch.randint(0, flash.n_channels, (1, n), generator=g,
+                         device="cuda", dtype=torch.int32), full[3]]
+    one = [full[0], torch.zeros_like(full[1]), torch.zeros_like(full[2]),
+           full[3]]
+    for what, stream, want_rows in (
+            ("the whole-row stream", rnd, {"chains": 0, "whole": 1}),
+            ("the one-chain stream", one, {"chains": 1, "whole": 0})):
+        _, r = page_clock_rows(pc_ops,
+                               lambda: pc_ops.simulate_fleet(*stream, *times))
+        check(r == want_rows, f"phase 14: {what} took {r}")
+    whole_ms = cuda_ms(torch, lambda: pc_ops.simulate_fleet(*rnd, *times),
+                       iters=3)
+    chain_ms = cuda_ms(torch, lambda: pc_ops.simulate_fleet(*one, *times),
+                       iters=3)
     pc_ops.launches = before                 # checks and timings
+    chain_ns = chain_ms / n * 1e6
+    longest = int(per_channel.max())
     # each input read once (ops, luns, channels: 4 bytes; valid: 1), each
     # output written once (a completion, 4 bytes; one makespan); the max
     # and two adds of a request
     return dict(bound(17 * n + 4, 3 * n), requests=n, ms=ms,
                 prefix_ms=prefix_ms, plain_ms=plain_ms, prefix=k,
                 device_us=dev_us, ns_per_request=ms / n * 1e6,
-                random_requests=n_req, max_abs_err=0.0)
+                random_requests=n_req, random_rows=rows,
+                custom16_requests=c16[0].shape[1], max_abs_err=0.0,
+                whole_ms=whole_ms, whole_ns=whole_ms / n * 1e6,
+                chain_ns=chain_ns, longest_chain=longest,
+                per_channel=per_channel.tolist(),
+                chain_floor_ms=longest * chain_ns * 1e-6)
 
 
 def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
@@ -1875,14 +1976,17 @@ def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
             made.close()
             timed.close()
         secs[name] = time.perf_counter() - t0
-        c = counts[name] = dict(ops.counts, page_clock=pc_ops.launches)
+        c = counts[name] = dict(ops.counts, page_clock=pc_ops.launches,
+                                page_clock_rows=dict(pc_ops.rows))
         allocs = sum(d.allocate_calls for d in made.made)
         check(c["page_clock"] == timed.n and c["rows"] == allocs
-              and c["alloc_select"] == c["grow_select"],
+              and c["alloc_select"] == c["grow_select"]
+              and pc_ops.rows["whole"] == 0,
               f"phase 14: {name} launched {c}, want page_clock once per "
-              f"page-granular timing call ({timed.n}), a row selection "
-              f"per legacy allocate call ({allocs}) and one grow per "
-              f"ALLOC selection")
+              f"page-granular timing call ({timed.n}) with every device "
+              f"row a chain a channel (each LUN on one channel), a row "
+              f"selection per legacy allocate call ({allocs}) and one grow "
+              f"per ALLOC selection")
         check_fleet_golden(golden_part(got[name]), golden[name],
                            f"phase 14: {name}",
                            time_keys=WORKLOAD_TIME_KEYS)
@@ -1977,12 +2081,19 @@ def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
     t0 = time.perf_counter()
     pc = phase_page_clock(torch, np, P, pc_ops, pc_ref)
     log(f"phase 14 (h): page_clock == plain version bit for bit on "
-        f"{PAGE_CLOCK_CASES} random padded batches ({pc['random_requests']} "
-        f"requests) and the first {pc['prefix']} of the FIXED "
-        f"concurrency-7 contended stream ({pc['requests']} requests); "
-        f"kernel {pc['ms']:.6f} ms a launch on the whole stream = "
-        f"{pc['ns_per_request']:.2f} ns a request, device "
-        f"{pc['device_us']} us a launch; {pc['prefix_ms']:.6f} ms on the "
+        f"{2 * PAGE_CLOCK_CASES} random padded batches and 16 LUNs a "
+        f"channel ({pc['random_requests']} requests; rows "
+        f"{pc['random_rows']}), the custom16 stream "
+        f"({pc['custom16_requests']} requests, one chain a channel) and "
+        f"the first {pc['prefix']} of the FIXED concurrency-7 contended "
+        f"stream ({pc['requests']} requests, one chain a channel: "
+        f"{pc['per_channel']} a channel); kernel {pc['ms']:.6f} ms a launch "
+        f"on the whole stream = {pc['ns_per_request']:.3f} ns a request, "
+        f"device {pc['device_us']} us a launch; the same length stepped "
+        f"whole {pc['whole_ms']:.6f} ms ({pc['whole_ns']:.3f} ns a "
+        f"request), as one chain {pc['chain_ns']:.3f} ns a request, so the "
+        f"longest chain ({pc['longest_chain']}) floors the stream at "
+        f"{pc['chain_floor_ms']:.6f} ms; {pc['prefix_ms']:.6f} ms on the "
         f"prefix, plain {pc['plain_ms']:.3f} ms on the prefix; bound "
         f"{pc['bound_ms']:.6f} ms ({pc['bound_by']}: {pc['bytes']} bytes); "
         f"checks and timings {time.perf_counter() - t0:.1f} s ({card})")
@@ -1991,7 +2102,10 @@ def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
     return {"counts": counts, "secs": secs, "page_clock": pc,
             "rows_launches": sum(c["rows"] for c in counts.values()),
             "page_clock_launches": sum(c["page_clock"]
-                                       for c in counts.values())}
+                                       for c in counts.values()),
+            "page_clock_rows": {k: sum(c["page_clock_rows"][k]
+                                       for c in counts.values())
+                                for k in ("chains", "whole")}}
 
 
 # --------------------------------------------------------------------- #
@@ -2331,7 +2445,8 @@ def phase_serve_ref(torch, serve, run, phase: str) -> dict:
         f"{SERVE_TOL})")
     check(max(errs) <= SERVE_TOL and max(cache_errs.values()) <= SERVE_TOL,
           f"{cfg.name}: serve kernel path vs plain path beyond {SERVE_TOL}")
-    return {"logit_errs": errs, "cache_errs": cache_errs}
+    return {"logit_errs": errs, "cache_errs": cache_errs,
+            "prefill_logits": ref["logits"][0]}
 
 
 def attention_timing(torch, F, fops, fref, dops, dref, *, b, s, hq, hkv,
@@ -2497,6 +2612,27 @@ def scan_floor(exps: int, instr: int) -> dict:
             "instr": instr}
 
 
+def profile_steps(torch, fn) -> list:
+    """``fn()`` twice under ``torch.profiler``, the first call a warm-up
+    step whose events the profiler drops, and the device events of the
+    second: the first events of a profiling window can go missing (a
+    layer's launches at the start of a profiled prefill), so only a
+    window that opens after a warm-up step is read.  The step's own
+    span on the device (``ProfilerStep#``, which covers its kernels) is
+    not one of them."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+
+
 def device_us(torch, fn, name: str, reps: int) -> float:
     """The mean device time of the kernels whose name holds ``name`` over
     ``reps`` calls of ``fn`` under ``torch.profiler`` (the kernel alone,
@@ -2504,17 +2640,10 @@ def device_us(torch, fn, name: str, reps: int) -> float:
     A region of one or a few launches can come back without device
     events, so it holds many; and a whole profile sometimes comes back
     with no device event at all, so it is taken up to three times."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = profile_steps(torch, lambda: [fn() for _ in range(reps)])
         if device:
             break
     spans = [e.time_range.elapsed_us() for e in device if name in e.name]
@@ -2534,26 +2663,26 @@ def bound_entry(ms, plain_ms, library_ms, bytes_moved, flops) -> dict:
 
 
 def profile_region(torch, fn, mark: str = None) -> dict:
-    """One call of ``fn`` (after a warm one) under ``torch.profiler``: its
-    wall time, the card's busy time (its kernel and copy spans, which do
-    not overlap on one stream), its device events, and the launches and
-    mean device time of the kernels whose name holds ``mark``."""
-    from torch.profiler import ProfilerActivity, profile
+    """One call of ``fn`` (after a warm one, and a profiled warm-up step,
+    see :func:`profile_steps`) under ``torch.profiler``: its wall time,
+    the card's busy time (its kernel and copy spans, which do not overlap
+    on one stream), its device events, and the launches and mean device
+    time of the kernels whose name holds ``mark``."""
+    wall = []
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e6)
     with torch.inference_mode():
         fn()                                       # warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = profile_steps(torch, timed)
     busy_us = sum(e.time_range.elapsed_us() for e in device)
     kern = [e.time_range.elapsed_us() for e in device
             if mark is not None and mark in e.name]
-    return {"wall_us": wall_us, "busy_us": busy_us,
+    return {"wall_us": wall[-1], "busy_us": busy_us,
             "device_events": len(device), "kernel_launches": len(kern),
             "kernel_us": sum(kern) / len(kern) if kern else None}
 
@@ -3143,25 +3272,61 @@ def slstm_inputs(torch, gen, b, s, d, h, dtype, *, strided=False):
 
 def xlstm_cases() -> dict:
     """Each scan's cases: the served shape, then T 1, 37, 129 and 2047 at
-    B 1-8 and the reduced widths, strided inputs, and a second width."""
+    B 1-8 and the reduced widths, strided inputs, and a second width; for
+    ``slstm_scan``, each on the design its launch plan picks (the ragged
+    lengths also at d 256, and d 1024 in 8 heads, where bf16 takes
+    clusters of 8 and of 16), then ``slstm_l2``: the served shape and a
+    strided one forced onto the L2 kernel, and the widths the plan gives
+    it (f32 d 1024, bf16 d 2048), as (B, T, d, H, strided, dtypes)."""
     ragged = [(1, 1), (3, 37), (8, 129), (2, 2047)]
     mlstm = [(8, 2048, 4, 384, False)]
     mlstm += [(b, t, 4, 32, i % 2 == 1) for i, (b, t) in enumerate(ragged)]
     mlstm += [(2, 129, 4, 384, True), (3, 40, 2, 512, False),
               (2, 33, 4, 96, True)]
     slstm = [(8, 2048, 768, 4, False)]
-    slstm += [(b, t, 64, 4, i % 2 == 1) for i, (b, t) in enumerate(ragged)]
-    slstm += [(2, 129, 768, 4, True), (3, 40, 96, 3, False)]
-    return {"mlstm_scan": mlstm, "slstm_scan": slstm}
+    slstm += [(b, t, dm, 4, i % 2 == 1) for dm in (64, 256)
+              for i, (b, t) in enumerate(ragged)]
+    slstm += [(2, 129, 768, 4, True), (3, 40, 96, 3, False),
+              (2, 33, 1024, 8, True)]
+    both = ("float32", "bfloat16")
+    slstm_l2 = [(8, 2048, 768, 4, False, both), (2, 129, 768, 4, True, both),
+                (2, 33, 1024, 4, False, ("float32",)),
+                (2, 33, 2048, 4, False, ("bfloat16",))]
+    return {"mlstm_scan": mlstm, "slstm_scan": slstm, "slstm_l2": slstm_l2}
 
 
 def phase_xlstm_scans(torch, np, mops, slops) -> dict:
     """Both scans against their plain versions on the same CUDA tensors,
-    f32 and bf16; returns each kernel's worst max-abs error."""
+    f32 and bf16, the sLSTM on both of its designs; returns each kernel's
+    worst max-abs error, and the sLSTM's by design."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     cases = xlstm_cases()
-    worst = {"mlstm_scan": 0.0, "slstm_scan": 0.0}
+    worst = {"mlstm_scan": 0.0, "slstm_scan": 0.0,
+             "slstm_by_design": {"cluster": 0.0, "l2": 0.0}}
     n = 0
+
+    def slstm_case(b, t, d, h, dtype, strided, design):
+        args = slstm_inputs(torch, gen, b, t, d, h, dtype, strided=strided)
+        plan = slops.launch_plan(d, h, dtype)
+        before = dict(slops.designs)
+        got = (slops.launch(*args, slops.Plan("l2")) if design == "l2"
+               else slops.slstm_scan(*args))
+        took = [k for k in before if slops.designs[k] != before[k]]
+        check(took == [design or plan.design],
+              f"slstm_scan {(b, t, d, h)} {dtype} launched {took}, want "
+              f"{design or plan.design}")
+        want = slops.slstm_scan(*args, impl="ref")
+        torch.cuda.synchronize()
+        err, diff = rel_err(torch, got, want)
+        tol = KERNEL_TOL[str(dtype).split(".")[1]]
+        check(got.dtype == dtype and tuple(got.shape) == (b, t, d)
+              and err <= tol,
+              f"slstm_scan {dtype} {(b, t, d, h)} strided {strided} on "
+              f"{took}: rel err {err} > {tol}")
+        worst["slstm_scan"] = max(worst["slstm_scan"], diff)
+        by = worst["slstm_by_design"]
+        by[took[0]] = max(by[took[0]], diff)
+        return plan
     for dtype in (torch.float32, torch.bfloat16):
         tol = KERNEL_TOL[str(dtype).split(".")[1]]
         for b, t, h, p, strided in cases["mlstm_scan"]:
@@ -3182,22 +3347,17 @@ def phase_xlstm_scans(torch, np, mops, slops) -> dict:
             n += 1
             del args, got, want
         for b, t, d, h, strided in cases["slstm_scan"]:
-            args = slstm_inputs(torch, gen, b, t, d, h, dtype,
-                                strided=strided)
             before = slops.launches
-            got = slops.slstm_scan(*args)
+            plan = slstm_case(b, t, d, h, dtype, strided, None)
             check(slops.launches == before + 1,
                   "slstm_scan launch not counted")
-            want = slops.slstm_scan(*args, impl="ref")
-            torch.cuda.synchronize()
-            err, diff = rel_err(torch, got, want)
-            check(got.dtype == dtype and tuple(got.shape) == (b, t, d)
-                  and err <= tol,
-                  f"slstm_scan {dtype} {(b, t, d, h)} strided {strided}: "
-                  f"rel err {err} > {tol}")
-            worst["slstm_scan"] = max(worst["slstm_scan"], diff)
+            log(f"phase 7f: slstm_scan {dtype} {(b, t, d, h)} on {plan}")
             n += 1
-            del args, got, want
+        for b, t, d, h, strided, dtypes in cases["slstm_l2"]:
+            if str(dtype).split(".")[1] in dtypes:
+                slstm_case(b, t, d, h, dtype, strided,
+                           "l2" if d == 768 else None)
+                n += 1
     log(f"phase 7f: mlstm_scan and slstm_scan == plain versions on {n} "
         f"cases (f32 rel err <= {KERNEL_TOL['float32']}, bf16 <= "
         f"{KERNEL_TOL['bfloat16']}); max_abs_err {worst}")
@@ -3211,7 +3371,11 @@ def xlstm_timing(torch, mops, slops, usage) -> dict:
     per state entry and step (``fp C``, ``(ip v) k``, the add, and ``C
     q``'s multiply-add) on the non-tensor-core rate; ``slstm_scan``'s
     recurrent product (bf16 inputs) on the bf16 rate, and its bytes.  No
-    PyTorch call computes either recurrence: no library time."""
+    PyTorch call computes either recurrence: no library time.  The sLSTM
+    is timed on both designs (the plan's cluster kernel, and the L2 kernel
+    forced at the same shape), and at :data:`SLSTM_FLOOR` (the cluster
+    kernel's narrowest width in 4 heads, 32 units a CTA and 4 row blocks:
+    the step chain's floor, its exchanges and the math between them)."""
     gen = torch.Generator(device="cuda").manual_seed(19)
     b, t, h = XLSTM_BATCH, XLSTM_PROMPT, 4
     p, d = 384, 768
@@ -3222,7 +3386,7 @@ def xlstm_timing(torch, mops, slops, usage) -> dict:
             ("mlstm_scan", mops, mops.mlstm_scan, margs,
              "mlstm_scan_kernel"),
             ("slstm_scan", slops, slops.slstm_scan, sargs,
-             "slstm_scan_kernel")):
+             SLSTM_MARK[slops.launch_plan(d, h, torch.bfloat16).design])):
         before = mod.launches
         ms = cuda_ms(torch, lambda: fn(*args), iters=5)
         dev = device_us(torch, lambda: fn(*args), kname, reps=3)
@@ -3264,7 +3428,30 @@ def xlstm_timing(torch, mops, slops, usage) -> dict:
             f"({t_['bound_by']}: {bytes_moved} bytes = {bytes_ms:.6f} ms, "
             f"{flops} flop = {ops_ms:.6f} ms; on the f32 pipes "
             f"{f32_ms:.6f} ms); bf16 kernel resources {res}")
-    del margs, sargs
+    slstm = out["slstm_scan"]
+    before = slops.launches
+    plan = slops.launch_plan(d, h, torch.bfloat16)
+    l2_ms = cuda_ms(torch, lambda: slops.launch(*sargs, slops.Plan("l2")),
+                    iters=3)
+    fd, fh = SLSTM_FLOOR
+    floor_plan = slops.launch_plan(fd, fh, torch.bfloat16)
+    check(floor_plan.design == "cluster" and floor_plan.cluster
+          == plan.cluster, f"slstm_scan's floor width takes {floor_plan}")
+    fargs = slstm_inputs(torch, gen, b, t, fd, fh, torch.bfloat16)
+    floor_ms = cuda_ms(torch, lambda: slops.slstm_scan(*fargs), iters=5)
+    slops.launches = before
+    slstm["designs"] = {
+        "cluster": {"ms": slstm["ms"], "plan": plan.__dict__},
+        "l2": {"ms": l2_ms}}
+    slstm.update(floor_ms=floor_ms, floor_us_per_step=floor_ms / t * 1e3,
+                 floor_plan=floor_plan.__dict__)
+    log(f"phase 10g: slstm_scan designs at the served shape (bf16): "
+        f"cluster {slstm['ms']:.6f} ms ({slstm['ms'] / t * 1e3:.4f} us a "
+        f"step; {plan}), L2 kernel {l2_ms:.6f} ms "
+        f"({l2_ms / t * 1e3:.4f} us a step); the step chain's floor, d "
+        f"{fd} in {fh} heads ({floor_plan}), {floor_ms:.6f} ms = "
+        f"{slstm['floor_us_per_step']:.4f} us a step")
+    del margs, sargs, fargs
     return out
 
 
@@ -3313,7 +3500,50 @@ def phase_xlstm_serve(torch, serve, cfg, kernels, others) -> dict:
     return dict(run, peak_gb=peak_gb)
 
 
-def log_xlstm_serve_timing(torch, serve, MDL, TT, run) -> dict:
+def slstm_design_logits(torch, MDL, TT, run, slops, ref_logits) -> dict:
+    """9g's prefill logits against the plain path's with the sLSTM on each
+    design: the served plan's (the cluster kernel's tensor-core sums) from
+    8g's run, and one more prefill with the plan forced onto the L2 kernel
+    (f32 sums on the CUDA cores): what of 9g's error the cluster kernel's
+    sums add.  The forced prefill's launches are not counted."""
+    from unittest import mock
+    cfg, v = run["cfg"], run["cfg"].vocab
+    caches = TT.init_caches(cfg, run["prompts"].shape[0],
+                            run["prompts"].shape[1] + 1, device="cuda")
+    before, designs = slops.launches, dict(slops.designs)
+    with torch.inference_mode(), mock.patch.object(
+            slops, "launch_plan", lambda *a, **k: slops.Plan("l2")):
+        logits, _ = MDL.make_prefill_step(cfg)(run["model"], run["prompts"],
+                                               caches)
+    torch.cuda.synchronize()
+    took = {k: slops.designs[k] - designs[k] for k in designs}
+    slops.launches = before
+    slops.designs.update(designs)
+    check(took == {"cluster": 0, "l2": 3},
+          f"the L2-forced prefill launched {took}")
+    errs = {"cluster": rel_err(torch, run["logits"][0][:, :v],
+                               ref_logits[:, :v])[0],
+            "l2": rel_err(torch, logits[:, :v], ref_logits[:, :v])[0],
+            "cluster_vs_l2": rel_err(torch, run["logits"][0][:, :v],
+                                     logits[:, :v])[0]}
+    log(f"phase 9g: {cfg.name} prefill logits rel err against the plain "
+        f"path, by sLSTM design: cluster kernel (served) "
+        f"{errs['cluster']:.4e}, L2 kernel {errs['l2']:.4e}; cluster vs "
+        f"L2 {errs['cluster_vs_l2']:.4e} (tolerance {SERVE_TOL})")
+    check(errs["l2"] <= SERVE_TOL, f"{cfg.name}: the L2-forced prefill "
+          f"is {errs['l2']} from the plain path")
+    del caches, logits
+    return errs
+
+
+#: the sLSTM's step-chain floor (d, H): the cluster kernel's narrowest
+#: width in 4 heads, 32 units a CTA in a cluster of 8, 4 row blocks of 16
+SLSTM_FLOOR = (256, 4)
+#: the sLSTM's kernel name in a profile, by design
+SLSTM_MARK = {"cluster": "slstm_cluster_kernel", "l2": "slstm_scan_kernel"}
+
+
+def log_xlstm_serve_timing(torch, serve, MDL, TT, run, slops) -> dict:
     """A second timed serve run, one profiled prefill (each scan's launches
     and device time, and the card's busy share) and one profiled decode
     step; returns each scan's device µs a launch in the profiled prefill
@@ -3336,11 +3566,14 @@ def log_xlstm_serve_timing(torch, serve, MDL, TT, run) -> dict:
     caches = TT.init_caches(cfg, b, run["prompts"].shape[1] + 1,
                             device="cuda")
     device = {}
-    for mark in ("mlstm_scan_kernel", "slstm_scan_kernel"):
+    plan = slops.launch_plan(cfg.d_model, cfg.n_heads,
+                             next(run["model"].parameters()).dtype)
+    for name, mark in (("mlstm_scan", "mlstm_scan_kernel"),
+                       ("slstm_scan", SLSTM_MARK[plan.design])):
         prof = profile_region(torch, lambda: prefill(run["model"],
                                                      run["prompts"], caches),
                               mark)
-        device[mark.replace("_kernel", "")] = prof["kernel_us"]
+        device[name] = prof["kernel_us"]
         if prof["device_events"]:
             log(f"phase 10g: profiled one {cfg.name} prefill: wall "
                 f"{prof['wall_us']:.1f} us, device busy "
@@ -4613,13 +4846,16 @@ def main() -> int:
     t0 = time.perf_counter()
     run = phase_xlstm_serve(torch, serve, XLSTM, kernels, others)
 
-    # 9g. the stepped plain recurrences, teacher-forced, against it
-    phase_serve_ref(torch, serve, run, "9g")
+    # 9g. the stepped plain recurrences, teacher-forced, against it; the
+    # prefill again with the sLSTM on its L2 kernel
+    ref = phase_serve_ref(torch, serve, run, "9g")
+    slstm_design_logits(torch, MDL, TT, run, slops, ref["prefill_logits"])
+    del ref
 
     # 10g. the scans at the served shape, a second serve run, profiled
     # prefill and decode
     xlstm_t = xlstm_timing(torch, mops, slops, usage)
-    prefill_us = log_xlstm_serve_timing(torch, serve, MDL, TT, run)
+    prefill_us = log_xlstm_serve_timing(torch, serve, MDL, TT, run, slops)
     for name, t in xlstm_t.items():     # where the timing's profile is empty
         if t["device_us"] is None:
             t["device_us"] = prefill_us[name]
@@ -4688,7 +4924,14 @@ def main() -> int:
         "library_ms": timed[name]["library_ms"],
         **({"device_us": timed[name]["device_us"]}
            if "device_us" in timed[name] else {}),
+        **({k: timed[name][k] for k in ("designs", "floor_ms",
+                                         "floor_us_per_step")}
+           if "designs" in timed[name] else {}),
     } for path, counts, timed, path_errs in paths for name in timed]
+    for e in serve_entries:         # the sLSTM's error on each design
+        if "designs" in e:
+            for k, v in xlstm_err["slstm_by_design"].items():
+                e["designs"][k]["max_abs_err"] = v
     log(gpu_name_and_limit())
     zns = "src/repro_torch/kernels/zns_alloc/csrc/zns_alloc.cu"
     zns_entries = [{
@@ -4784,6 +5027,12 @@ def main() -> int:
         "bound_ms": pc["bound_ms"],
         "bound_by": pc["bound_by"],
         "library_ms": None,
+        "rows": work["page_clock_rows"],
+        "designs": {"chains": {"ms": pc["ms"]},
+                    "whole": {"ms": pc["whole_ms"],
+                              "requests": pc["requests"]}},
+        "chain_ns": pc["chain_ns"],
+        "chain_floor_ms": pc["chain_floor_ms"],
     }
     log(json.dumps({"kernels": zns_entries + serve_entries + [pc_entry]}))
     log(json.dumps({"ok": True, "device": {

@@ -7,15 +7,28 @@ the choice is made by the tensors' device alone, and a CUDA call either
 launches the kernel or raises.  ``impl="ref"`` runs the plain version on
 any device (the card's comparison path).
 
-The kernel steps each device row's requests in order, one CTA a row, and
-equals the plain version bit for bit.  A request whose LUN, channel or op
-is out of range raises ``IndexError`` after the launch (the kernel sets an
-error word the wrapper reads back), as the plain version's indexing does.
+One CTA a device row, one launch a call.  The CTA first reads its row
+once: it checks every index and records each LUN's channel.  Where no LUN
+of the row meets two channels (and the row has at most
+:data:`MAX_CHAINS` channels), each channel's requests form a chain of
+their own -- they share no clock with another channel's -- and one
+thread steps each chain in stream order (its clocks in registers where
+its channel has at most two LUNs); otherwise one thread steps the whole
+row in order.  Either way every
+clock sees the same f32 operations in the same order as in the plain
+version, so the two are equal bit for bit (``csrc/page_clock.cu``'s
+header gives the argument).  A request whose LUN, channel or op is out
+of range raises ``IndexError`` after the launch (the kernel sets an
+error word the wrapper reads back), as the plain version's indexing
+does.  The four request arrays are passed contiguous and 16-byte aligned
+(the kernel's 16-byte loads); a view that is not is copied first.
 
-``launches`` counts kernel launches (never plain-version calls);
-:func:`reset_launches` zeroes it.  ``_plans`` keeps one launch plan per
-argument signature (shape, dtypes, resources, device), which
-``repro_torch.obs.profile`` counts as this kernel's launch plans.
+``launches`` counts kernel launches (never plain-version calls) and
+``rows`` the device rows each path stepped (``"chains"``, ``"whole"``, as
+the kernel reports them); :func:`reset_launches` zeroes both.  ``_plans``
+keeps one launch plan per argument signature (shape, dtypes, resources,
+device), which ``repro_torch.obs.profile`` counts as this kernel's launch
+plans.
 """
 
 from __future__ import annotations
@@ -31,10 +44,12 @@ from repro_torch.kernels.page_clock.ref import simulate_fleet_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "page_clock.cu"
 MAX_RESOURCES = 1024     # LUNs, and channels: the kernel's shared clocks
+MAX_CHAINS = 32          # channels a row stepped one chain a channel
 
 F32 = torch.float32
 
 launches = 0
+rows = {"chains": 0, "whole": 0}
 _lib_cache: list = []      # the loaded library, once per process
 _plans: dict = {}          # argument signature -> launch integers
 
@@ -42,6 +57,7 @@ _plans: dict = {}          # argument signature -> launch integers
 def reset_launches() -> None:
     global launches
     launches = 0
+    rows.update(chains=0, whole=0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -123,9 +139,10 @@ def simulate_fleet(ops: torch.Tensor, luns: torch.Tensor,
     if t_op.shape != (3,) or t_xfer.dim() != 0:
         raise ValueError(f"t_op must be (3,) and t_xfer a scalar, got "
                          f"{tuple(t_op.shape)} and {tuple(t_xfer.shape)}")
-    ops, luns, channels, valid = (t.contiguous()
-                                  for t in (ops, luns, channels, valid))
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    ops, luns, channels, valid = (
+        t if t.data_ptr() % 16 == 0 else t.clone()
+        for t in (x.contiguous() for x in (ops, luns, channels, valid)))
+    err = torch.zeros(1 + n_dev, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = _lib().page_clock_fwd(
@@ -137,7 +154,10 @@ def simulate_fleet(ops: torch.Tensor, luns: torch.Tensor,
         raise RuntimeError(f"page_clock kernel launch failed: CUDA error "
                            f"{code}")
     launches += 1
-    if int(err.item()):
+    flags = err.cpu()
+    rows["chains"] += int((flags[1:] == 1).sum())
+    rows["whole"] += int((flags[1:] == 2).sum())
+    if int(flags[0]):
         raise IndexError(f"page_clock: a request's LUN, channel or op is "
                          f"out of range ({n_luns} LUNs, {n_channels} "
                          f"channels, 3 ops)")

@@ -352,6 +352,68 @@ def test_scan_wrappers_check_their_arguments():
         slstm_ops.slstm_scan(pre, torch.zeros(4, 4, 16), impl="xla")
 
 
+PLAN_SHAPES = [(768, 4), (2048, 4), (1024, 4), (512, 4), (64, 4),
+               (96, 3), (48, 4), (32, 4), (40, 5), (24, 3), (96, 4),
+               (256, 4), (1024, 8), (1536, 8), (3072, 16)]
+
+
+def test_slstm_launch_plan_at_the_served_shape():
+    """xlstm-125m's sLSTM (d 768, H 4): bf16 takes a cluster of 8, 96
+    units a CTA, its 147,456-byte slice of r_rec in registers as
+    tensor-core fragments (12 row blocks of 16, 384 threads); f32 takes
+    the L2 kernel."""
+    bf = slstm_ops.launch_plan(768, 4, torch.bfloat16)
+    assert bf == slstm_ops.Plan(
+        "cluster", cluster=8, units=96, kb=12, threads=384,
+        smem=slstm_ops.cluster_smem(768, 4, 8), r_bytes=147_456)
+    assert bf.smem == 32 + 4 * (2 * 768 + 4 * 96) + 8 * 8 * 3 * 4
+    assert slstm_ops.launch_plan(768, 4, torch.float32) \
+        == slstm_ops.Plan("l2")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_launch_plan_keeps_the_l2_kernel_where_no_cluster_fits(
+        dtype):
+    """f32 always runs the L2 kernel, and so does bf16 where no cluster
+    of 8 or 16 gives a CTA 16 to 96 units (d 2048 in 4 heads: a head's
+    512 rows are no fragment shape; d 3072 in 16: 192 units a CTA); bf16
+    moves to 16 CTAs where 8 would give a CTA more than 96 units."""
+    for d, h in ((2048, 4), (3072, 16), (64, 4), (96, 3)):
+        assert slstm_ops.launch_plan(d, h, dtype) == slstm_ops.Plan("l2")
+    assert 2048 <= slstm_ops.MAX_D[torch.bfloat16]
+    for d, h, c in ((512, 4, 8), (1024, 8, 16), (1536, 8, 16)):
+        plan = slstm_ops.launch_plan(d, h, dtype)
+        if dtype == torch.float32:
+            assert plan == slstm_ops.Plan("l2")
+        else:
+            assert plan.design == "cluster" and plan.cluster == c
+
+
+@pytest.mark.parametrize("d,h", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_launch_plan_obeys_the_kernel_limits(d, h, dtype):
+    """Every plan, at the served width, the L2 widths and the ragged
+    reduced ones: the source's checks (slstm_scan_cluster_fwd) hold, the
+    L2 kernel runs only where no cluster could, and the plan's shared
+    bytes are the source's."""
+    plan = slstm_ops.launch_plan(d, h, dtype)
+    ph = d // h
+    cluster_ok = [c for c in slstm_ops.CLUSTER_SIZES
+                  if d % c == 0 and (d // c) % 16 == 0
+                  and 4 * (d // c) <= slstm_ops.MMA_THREADS]
+    if plan.design == "l2":
+        assert (dtype == torch.float32 or ph % 16
+                or ph // 16 not in slstm_ops.MMA_BLOCKS or not cluster_ok)
+        return
+    c, u = plan.cluster, plan.units
+    assert dtype == torch.bfloat16 and c == min(cluster_ok) and d == c * u
+    assert u % 16 == 0 and ph == 16 * plan.kb
+    assert plan.kb in slstm_ops.MMA_BLOCKS
+    assert plan.threads == 4 * u <= slstm_ops.MMA_THREADS
+    assert plan.r_bytes == ph * 4 * u * 2
+    assert plan.smem == slstm_ops.cluster_smem(d, h, c)
+
+
 # --------------------------------------------------------------------- #
 # the reduced xlstm-125m, served
 # --------------------------------------------------------------------- #
@@ -611,8 +673,9 @@ def test_the_port_tree_is_lint_clean():
 def test_cuda_scans_match_their_plain_versions():
     """Both kernels against their plain versions on CUDA tensors, f32
     and bf16, at the reduced widths and ragged lengths, q/k/v as strided
-    views of one projection (``chip_smoke.py`` phase 7f runs the served
-    shapes)."""
+    views of one projection, the sLSTM also at d 256 in 4 heads, where
+    bf16 takes the cluster kernel, on the plan's kernel and on the L2
+    kernel (``chip_smoke.py`` phase 7f runs the served shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -625,16 +688,19 @@ def test_cuda_scans_match_their_plain_versions():
             gates = torch.randn((b, s, 2 * H), generator=gen,
                                 device="cuda")
             li, lf = gates[..., :H], TL.log_sigmoid(gates[..., H:] + 2)
-            got = mlstm_ops.mlstm_scan(q, k, v, li, lf)
-            want = mlstm_ops.mlstm_scan(q, k, v, li, lf, impl="ref")
-            pre = torch.randn((b, s, 4 * D), generator=gen,
-                              device="cuda").to(dtype)
-            r = (torch.randn((H, D // H, D), generator=gen, device="cuda")
-                 / 4).to(dtype)
-            got_s = slstm_ops.slstm_scan(pre, r)
-            want_s = slstm_ops.slstm_scan(pre, r, impl="ref")
+            pairs = [(mlstm_ops.mlstm_scan(q, k, v, li, lf),
+                      mlstm_ops.mlstm_scan(q, k, v, li, lf, impl="ref"))]
+            for d in (D, 256):
+                pre = torch.randn((b, s, 4 * d), generator=gen,
+                                  device="cuda").to(dtype)
+                r = (torch.randn((H, d // H, 4 * d // H), generator=gen,
+                                 device="cuda") * (d // H) ** -0.5).to(dtype)
+                want_s = slstm_ops.slstm_scan(pre, r, impl="ref")
+                pairs.append((slstm_ops.slstm_scan(pre, r), want_s))
+                pairs.append((slstm_ops.launch(pre, r, slstm_ops.Plan("l2")),
+                              want_s))
             torch.cuda.synchronize()
-            for g, w in ((got, want), (got_s, want_s)):
+            for g, w in pairs:
                 assert rel_err(to_np(g), to_np(w)) <= tol[dtype]
 
 
@@ -652,3 +718,27 @@ def test_cuda_scan_launches_are_counted_and_limits_raise():
     assert mlstm_ops.launches == before + 1
     mlstm_ops.mlstm_scan(q, q, q, g, g, impl="ref")
     assert mlstm_ops.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_designs_at_the_served_width():
+    """The sLSTM at d 768 in 4 heads, T 129: bf16 on the tensor-core
+    cluster kernel, both dtypes on the L2 kernel, each within its
+    tolerance of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tol = {torch.float32: 5e-5, torch.bfloat16: 2.5e-2}
+    for dtype in (torch.float32, torch.bfloat16):
+        pre = torch.randn((2, 129, 4 * 768), generator=gen,
+                          device="cuda").to(dtype)
+        r = (torch.randn((4, 192, 768), generator=gen, device="cuda")
+             * 192 ** -0.5).to(dtype)
+        want = slstm_ops.slstm_scan(pre, r, impl="ref")
+        for plan in (slstm_ops.launch_plan(768, 4, dtype),
+                     slstm_ops.Plan("l2")):
+            before = slstm_ops.launches
+            got = slstm_ops.launch(pre, r, plan)
+            torch.cuda.synchronize()
+            assert slstm_ops.launches == before + 1
+            assert rel_err(to_np(got), to_np(want)) <= tol[dtype]
