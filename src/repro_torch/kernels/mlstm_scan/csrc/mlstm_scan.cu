@@ -1,11 +1,17 @@
 // mlstm_scan: the mLSTM's matrix-memory recurrence over a whole sequence,
-// for Hopper (sm_90a).
+// stepped, for Hopper (sm_90a) -- the recurrent design of two.
 //
 // Replaces no Pallas kernel: the reference runs this recurrence as a
 // `lax.scan` (src/repro/models/xlstm.py, `mlstm_forward`'s `step`, through
 // `layers.chunked_remat_scan`), which XLA compiles into one device loop.
-// This kernel is that loop on the card.  The plain PyTorch version of the
-// same function is ../ref.py; the two agree to f32 rounding.
+// The served path (bf16, P a multiple of 32 up to 384) runs the chunkwise
+// design, mlstm_chunkwise.cu, which computes the same function a chunk of
+// 32 steps at a time on the tensor cores; ../ops.py `launch_plan` keeps
+// this kernel for f32 (whose 5e-5 bar bf16 tensor-core operands would not
+// keep) and every other shape, and it stays beside the chunkwise one as
+// the second design its error is told apart from.  The plain PyTorch
+// version of the function is ../ref.py `mlstm_scan_ref`; the two agree to
+// f32 rounding.
 //
 // What it computes: q, k, v (B, S, H, P) in the activation dtype (f32 or
 // bf16), read through their strides (the last dimension contiguous), and
@@ -16,12 +22,15 @@
 //     h   = C q / max(|n . q|, 1)
 // writes h (B, S, H, P), contiguous, in the activation dtype.
 //
-// What bounds it on an H100: the f32 arithmetic on the state.  Every step
-// touches each of the P^2 state entries three times (a product, a fused
-// multiply-add for the update, one for C q): at the served prefill (B 8,
-// S 2048, H 4, P 384) 29 G instructions a lane, 0.98 ms at 128 lanes a
-// clock on 132 SMs, against 48.3 GFLOP / 67 TFLOP/s = 0.72 ms counted as
-// flops; the bytes (q, k, v and h in bf16, 0.4 GB) take 0.12 ms.
+// What bounds it on an H100: the stepped form's f32 arithmetic on the
+// state.  Every step touches each of the P^2 state entries three times (a
+// product, a fused multiply-add for the update, one for C q): at the
+// served prefill (B 8, S 2048, H 4, P 384) 29 G instructions a lane,
+// 0.98 ms at 128 lanes a clock on 132 SMs, against 48.5 GFLOP / 67
+// TFLOP/s = 0.72 ms counted as flops; the bytes (q, k, v and h in bf16,
+// 0.2 GB) take 0.06 ms.  That floor is the recurrent form's own, which is
+// why the served path moved to the chunkwise form (its bound the bytes'
+// 0.060 ms, see its header).
 //
 // The design: each row of C evolves alone given the step's gates and k,
 // so a CTA owns kRows rows of one (b, h) and needs nothing from any other
@@ -34,14 +43,13 @@
 // time, double-buffered with 16-byte cp.async copies (plain loads where
 // an address or stride is not 16-byte aligned), so no device-memory
 // latency sits in the step loop; h goes out through shared memory per
-// chunk.  (A first version staged with plain loads between barriers and
-// waited out the loads' latency in every chunk.)  The state stays in
-// registers for the whole sequence, so C never touches device memory.
-// At the served shape that is 12 CTAs a (b, h), 384 in all.
+// chunk.  The state stays in registers for the whole sequence, so C never
+// touches device memory.  At P 384 that is 12 CTAs a (b, h).
 //
-// P must be a multiple of 32 up to 512 (ops.py checks): the kernel is
-// instantiated for CPL = 1, 2, 4, 8, 12, 16 columns a lane and a P between
-// them runs on the next wider one with the extra columns zero.
+// Limits: P must be a multiple of 32 up to 512 (ops.py checks): the
+// kernel is instantiated for CPL = 1, 2, 4, 8, 12, 16 columns a lane and
+// a P between them runs on the next wider one with the extra columns
+// zero.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,54 +1,115 @@
 """Public entry point of the mLSTM scan.
 
-:func:`mlstm_scan` with ``impl="kernel"`` (the default) launches the
-hand-written Hopper kernel (``csrc/mlstm_scan.cu``, built at first use)
-on CUDA tensors and runs the plain version in :mod:`.ref` on CPU tensors
--- the choice is made by the tensors' device alone, and a CUDA call
-either launches the kernel or raises.  ``impl="ref"`` runs the plain
-version on any device (the card's comparison path).
+:func:`mlstm_scan` with ``impl="kernel"`` (the default) launches a
+hand-written Hopper kernel on CUDA tensors and runs the plain version in
+:mod:`.ref` on CPU tensors -- the choice is made by the tensors' device
+alone, and a CUDA call either launches a kernel or raises.  ``impl="ref"``
+runs the plain version on any device (the card's comparison path).
 
-The kernel reads q, k and v through their batch, time and head strides
-(the last dimension contiguous), so they may be views of the
-projections, and the log gates through theirs.  A CTA holds 32 rows of
-one head's state in registers; the head size P must be a multiple of 32
-up to :data:`MAX_P`.
+Two designs, each its own source built at first use, one launch a call;
+:func:`launch_plan`, a pure function of the head size and dtype, picks
+one:
 
-``launches`` counts kernel launches (never plain-version calls);
-:func:`reset_launches` zeroes it.
+* ``"chunkwise"`` (bf16, P a multiple of 32 up to :data:`CHUNKWISE_MAX_P`;
+  ``csrc/mlstm_chunkwise.cu``): chunks of :data:`CHUNK` steps on the
+  tensor cores, 96 rows of a head's C a CTA in registers as ``mma.sync``
+  accumulators, the f32 operands as bf16 hi/mid/lo triples; its plain
+  version is :func:`.ref.mlstm_chunkwise_ref`;
+* ``"recurrent"`` (f32, whose 5e-5 bar bf16 operands would not keep, and
+  every other shape; ``csrc/mlstm_scan.cu``): the stepped recurrence, a
+  CTA 32 rows of a head's C in registers, P a multiple of 32 up to
+  :data:`MAX_P`.
+
+Both read q, k and v through their batch, time and head strides (the
+last dimension contiguous), so they may be views of the projections, and
+the log gates through theirs.  :func:`launch` runs one launch of a given
+plan (the card's check of the recurrent kernel at a shape the plan gives
+the chunkwise one, ``Plan("recurrent")``); it refuses a plan the shape
+does not allow.
+
+``launches`` counts kernel launches (never plain-version calls) and
+``designs`` the launches of each design; :func:`reset_launches` zeroes
+both.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+from repro_torch.kernels.mlstm_scan.ref import CHUNKWISE_L, mlstm_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_scan.cu"
+CHUNKWISE_SOURCE = SOURCE.parent / "mlstm_chunkwise.cu"
 MAX_P = 512
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the chunkwise kernel's steps a chunk, rows of C a CTA, and the
+#: head-size tiles it is built for (a P pads up to the next)
+CHUNK = CHUNKWISE_L
+CHUNKWISE_ROWS = 96
+CHUNKWISE_TILES = (32, 128, 384)
+CHUNKWISE_MAX_P = CHUNKWISE_TILES[-1]
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How :func:`mlstm_scan` launches at one shape.  ``design`` is
+    ``"chunkwise"`` or ``"recurrent"``; for the chunkwise kernel (0 for
+    the recurrent one) ``tile`` is the head-size tile it runs P on and
+    ``ctas`` its CTAs a (batch, head)."""
+    design: str
+    tile: int = 0
+    ctas: int = 0
+
+
+def launch_plan(p: int, dtype: torch.dtype) -> Plan:
+    """bf16 with P a multiple of 32 up to :data:`CHUNKWISE_MAX_P`: the
+    chunkwise kernel on the narrowest tile of :data:`CHUNKWISE_TILES`
+    that holds P, ``ceil(P / 96)`` CTAs a (batch, head).  Else (f32, or
+    another P) the recurrent kernel."""
+    if dtype not in DTYPES:
+        raise TypeError(f"mlstm_scan takes float32 or bfloat16, not {dtype}")
+    if p < 1:
+        raise ValueError(f"head size must be positive, not {p}")
+    if dtype != torch.bfloat16 or p % 32 or p > CHUNKWISE_MAX_P:
+        return Plan("recurrent")
+    tile = min(t for t in CHUNKWISE_TILES if t >= p)
+    return Plan("chunkwise", tile, -(-p // CHUNKWISE_ROWS))
+
 
 launches = 0
-_lib_cache: list = []      # the loaded library, once per process
+designs = {"chunkwise": 0, "recurrent": 0}
+_lib_cache: dict = {}      # the loaded libraries, once per process
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    designs.update(chunkwise=0, recurrent=0)
 
 
-def _lib() -> ctypes.CDLL:
-    if not _lib_cache:
-        lib = _build.load(SOURCE)
-        lib.mlstm_scan_fwd.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
-        lib.mlstm_scan_fwd.restype = ctypes.c_int
-        _lib_cache.append(lib)
-    return _lib_cache[0]
+def _lib(design: str) -> ctypes.CDLL:
+    if design not in _lib_cache:
+        if design == "chunkwise":
+            lib = _build.load(CHUNKWISE_SOURCE)
+            lib.mlstm_chunkwise_fwd.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+            lib.mlstm_chunkwise_fwd.restype = ctypes.c_int
+            lib.mlstm_chunkwise_tile.argtypes = [ctypes.c_int]
+            lib.mlstm_chunkwise_tile.restype = ctypes.c_int
+        else:
+            lib = _build.load(SOURCE)
+            lib.mlstm_scan_fwd.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+            lib.mlstm_scan_fwd.restype = ctypes.c_int
+        _lib_cache[design] = lib
+    return _lib_cache[design]
 
 
 def _check(q, k, v, log_i, log_f) -> None:
@@ -80,16 +141,27 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                log_i: torch.Tensor, log_f: torch.Tensor, *,
                impl: str = "kernel") -> torch.Tensor:
     """q/k/v ``(B, S, H, P)``, log_i/log_f ``(B, S, H)`` f32 -> h ``(B, S,
-    H, P)`` in q's dtype (see :mod:`.ref` for the semantics)."""
-    global launches
+    H, P)`` in q's dtype (see :mod:`.ref` for the semantics), on the
+    kernel :func:`launch_plan` picks."""
     _check(q, k, v, log_i, log_f)
     if impl == "ref" or (impl == "kernel" and q.device.type == "cpu"):
         return mlstm_scan_ref(q, k, v, log_i, log_f)
     if impl != "kernel":
-        raise ValueError(f"unknown ssm impl: {impl}")
+        raise ValueError(f"unknown mlstm_scan impl: {impl}")
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan runs on cpu or cuda tensors, not "
                          f"{q.device}")
+    return launch(q, k, v, log_i, log_f, launch_plan(q.shape[-1], q.dtype))
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           log_i: torch.Tensor, log_f: torch.Tensor,
+           plan: Plan) -> torch.Tensor:
+    """One launch of the kernel ``plan`` describes, on CUDA tensors
+    (:func:`mlstm_scan` passes :func:`launch_plan`'s; a tool may pass
+    ``Plan("recurrent")`` at any shape that kernel takes)."""
+    global launches
+    _check(q, k, v, log_i, log_f)
     _build.refuse_dtensor("mlstm_scan", q, k, v, log_i, log_f)
     _build.refuse_autograd("mlstm_scan", 'impl="ref"', q, k, v, log_i,
                            log_f)
@@ -103,16 +175,29 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
+    chunkwise = plan.design == "chunkwise"
+    if chunkwise and (q.dtype != torch.bfloat16 or p > CHUNKWISE_MAX_P):
+        raise ValueError(f"mlstm_scan's chunkwise kernel takes bf16 with a "
+                         f"head size up to {CHUNKWISE_MAX_P}, not "
+                         f"{q.dtype} at {p}")
+    if plan.design not in designs:
+        raise ValueError(f"unknown mlstm_scan design {plan.design!r}")
     out = torch.empty((b, s, h, p), dtype=q.dtype, device=q.device)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *log_i.stride(), *log_f.stride())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+            log_f.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().mlstm_scan_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
-            log_f.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, s, h, p,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *log_i.stride(), *log_f.stride(), stream)
+        if chunkwise:
+            err = _lib("chunkwise").mlstm_chunkwise_fwd(
+                *ptrs, b, s, h, p, *strides, stream)
+        else:
+            err = _lib("recurrent").mlstm_scan_fwd(
+                *ptrs, DTYPES[q.dtype], b, s, h, p, *strides, stream)
     if err != 0:
-        raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"mlstm_scan {plan.design} kernel launch failed: "
+                           f"CUDA error {err}")
     launches += 1
+    designs[plan.design] += 1
     return out

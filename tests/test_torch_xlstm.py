@@ -341,7 +341,7 @@ def test_scan_wrappers_check_their_arguments():
         mlstm_ops.mlstm_scan(q, q, q, g[:, :2], g)
     with pytest.raises(TypeError, match="float32"):
         mlstm_ops.mlstm_scan(q, q, q, g.double(), g)
-    with pytest.raises(ValueError, match="unknown ssm impl"):
+    with pytest.raises(ValueError, match="unknown mlstm_scan impl"):
         mlstm_ops.mlstm_scan(q, q, q, g, g, impl="xla")
     pre = torch.zeros(1, 3, 64)
     with pytest.raises(ValueError, match="not \\(H, ph, 4 ph\\)"):
@@ -702,6 +702,45 @@ def test_cuda_scans_match_their_plain_versions():
             torch.cuda.synchronize()
             for g, w in pairs:
                 assert rel_err(to_np(g), to_np(w)) <= tol[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_designs_match_their_plain_versions():
+    """The mLSTM's two kernels on CUDA tensors in bf16: the chunkwise one
+    (the plan's at P 32, 96 and 384) and the recurrent one forced at the
+    same shapes, T on and off the chunk of 32, q/k/v as strided views,
+    each within 2.5e-2 of the stepped plain version, the chunkwise kernel
+    also of its own plain version with its operand roundings; the
+    source's tiles are the plan's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels.mlstm_scan import ref as mlstm_ref
+    lib = mlstm_ops._lib("chunkwise")
+    for p in (32, 64, 96, 160, 384):
+        assert lib.mlstm_chunkwise_tile(p) == mlstm_ops.launch_plan(
+            p, torch.bfloat16).tile
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for b, s, p in ((1, 1, 32), (2, 31, 32), (2, 33, 32), (3, 129, 32),
+                    (2, 64, 96), (2, 65, 384)):
+        qkv = torch.randn((b, s, 3, H, p), generator=gen, device="cuda")
+        qkv[:, :, 1] *= p ** -0.5
+        q, k, v = qkv.to(torch.bfloat16).unbind(2)
+        gates = torch.randn((b, s, 2 * H), generator=gen, device="cuda")
+        li, lf = gates[..., :H] * 2, TL.log_sigmoid(gates[..., H:] + 3)
+        want = to_np(mlstm_ops.mlstm_scan(q, k, v, li, lf, impl="ref"))
+        plan = mlstm_ops.launch_plan(p, torch.bfloat16)
+        assert plan.design == "chunkwise"
+        got = {}
+        for design in (plan, mlstm_ops.Plan("recurrent")):
+            before = dict(mlstm_ops.designs)
+            got[design.design] = mlstm_ops.launch(q, k, v, li, lf, design)
+            torch.cuda.synchronize()
+            assert mlstm_ops.designs[design.design] \
+                == before[design.design] + 1
+            assert rel_err(to_np(got[design.design]), want) <= 2.5e-2
+        alg = mlstm_ref.mlstm_chunkwise_ref(
+            q, k, v, li, lf, operands=mlstm_ref.KERNEL_OPERANDS)
+        assert rel_err(to_np(got["chunkwise"]), to_np(alg)) <= 2.5e-2
 
 
 @pytest.mark.cuda
