@@ -4278,7 +4278,10 @@ DIST_CUT = (2, 2, 256)
 #: 16d: granite's prompts and decode steps
 DIST_DECODE = (8, 512, 8)
 DIST_TOL = {"psum": 1e-6, "pipe": 1e-5, "scalar": 1e-5, "leaf": 1e-4,
-            "loss": 2e-2, "decode": 3e-2}
+            "loss": 2e-2, "decode": 3e-2, "aux": 1e-5, "moe_out": 2.5e-2}
+#: 16f: Jamba-1.5-Large's prompts and decode steps (depth 4 everywhere,
+#: the full period of 8 layers on four cards)
+DIST_MOE = (8, 512, 8)
 
 
 def worst(errs) -> float:
@@ -4521,6 +4524,213 @@ def dist_decode(torch, SH, M, T, serve, cfg, world) -> dict:
             "mesh": dist_mesh(world), "k_placements": k_place}
 
 
+def moe_ffns(T, model) -> list:
+    return [m for m in model.modules() if isinstance(m, T.MoEFFN)]
+
+
+def moe_serve(torch, SH, T, serve, cfg, model, caches, wrap,
+              times=None) -> list:
+    """16f: prefill the DIST_MOE prompts on the plain paths, then decode
+    teacher-forced steps (token i + 1 at step i); the logits of each call,
+    gathered.  ``times``: a list to take each call's seconds."""
+    from repro_torch.models.shards import whole
+    n_seq, prompt_len, steps = DIST_MOE
+    prompts = torch.as_tensor(serve.make_inputs(cfg, n_seq, prompt_len,
+                                                seed=0)[0],
+                              dtype=torch.int32, device="cuda")
+    out = []
+    with torch.no_grad(), SH.implicit_replication():
+        for i in range(steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                lg, caches = T.forward_prefill(model, cfg, wrap(prompts),
+                                               caches, attn_impl="qchunk",
+                                               ssm_impl="ref")
+            else:
+                tok = torch.full((n_seq,), i, dtype=torch.int32,
+                                 device="cuda")
+                pos = torch.full((n_seq,), prompt_len + i - 1,
+                                 dtype=torch.int32, device="cuda")
+                lg, caches = T.forward_decode(model, cfg, wrap(tok), caches,
+                                              wrap(pos), attn_impl="dense")
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+            out.append(whole(lg)[:, :cfg.vocab])
+    return out
+
+
+def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
+    """16f check: a Jamba cut with its 16 experts, unplaced on card 0
+    (plain paths; every MoE layer records its routes), freed; then placed
+    on every card by the production rules from the same seed, replaying
+    those routes: each MoE call's kept mask and positions, its aux loss,
+    and every call's logits against card 0's."""
+    from repro_torch.models.shards import whole
+    n_seq, prompt_len, steps = DIST_MOE
+    mesh = M.make_mesh(dist_mesh(world))
+    rank = dist.get_rank()
+    max_seq = prompt_len + steps
+    k = cfg.top_k
+    rows = [n_seq * prompt_len] + [n_seq] * steps     # tokens a call
+    n_moe = sum(moe for _, moe in T.layer_plan(cfg))
+    routes = torch.empty((n_moe, sum(rows) * k), dtype=torch.int64,
+                         device="cuda")
+    ref = None
+    t0 = time.perf_counter()
+    if rank == 0:
+        model = serve.build(cfg, seed=0, device="cuda")
+        for ffn in moe_ffns(T, model):
+            ffn.record = []
+        del ffn                 # a layer's 19 GB of experts
+        logits = moe_serve(torch, SH, T, serve, cfg, model, T.init_caches(
+            cfg, n_seq, max_seq, device="cuda"), lambda t: t)
+        recs = [f.record for f in moe_ffns(T, model)]
+        routes.copy_(torch.stack([torch.cat([r.gate_idx.reshape(-1)
+                                             for r in rec]) for rec in recs]))
+        ref = {"logits": logits,
+               "keep": [[r.keep for r in rec] for rec in recs],
+               "pos": [[r.pos for r in rec] for rec in recs],
+               "aux": [[float(r.aux) for r in rec] for rec in recs]}
+        del model, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+    unplaced_s = time.perf_counter() - t0
+    dist.broadcast(routes, src=0)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = serve.build(cfg, seed=0, device="cuda", mesh=mesh)
+    for ffn, r in zip(moe_ffns(T, model), routes):
+        ffn.record = []
+        ffn.replay = iter(r.view(-1, k).split(rows))
+    del ffn
+    caches = SH.shard_caches(cfg, T.init_caches(cfg, n_seq, max_seq,
+                                                device="cuda"), mesh, n_seq)
+    dp = SH.spec(SH.fit_batch_axes(mesh, n_seq))
+    logits = moe_serve(torch, SH, T, serve, cfg, model, caches,
+                       lambda t: SH.place(t, dp, mesh))
+    got = [[(whole(r.keep), whole(r.pos), float(r.aux)) for r in f.record]
+           for f in moe_ffns(T, model)]
+    peak = torch.cuda.max_memory_allocated()
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"mesh": dist_mesh(world), "unplaced_s": unplaced_s,
+           "placed_s": time.perf_counter() - t0, "peak": peak,
+           "calls": len(rows), "moe_layers": n_moe}
+    if rank == 0:
+        out["routes_equal"] = all(
+            torch.equal(g[0], rk) and torch.equal(g[1], rp)
+            for gl, kl, pl in zip(got, ref["keep"], ref["pos"])
+            for g, rk, rp in zip(gl, kl, pl))
+        out["dropped"] = sum(int((~rk).sum()) for kl in ref["keep"]
+                             for rk in kl)
+        out["aux_pairs"] = [[(a, g[2]) for g, a in zip(gl, al)]
+                            for gl, al in zip(got, ref["aux"])]
+        out["aux"] = worst(abs(g - a) for pl in out["aux_pairs"]
+                           for a, g in pl)
+        errs = [rel_err(torch, g, r)[0]
+                for g, r in zip(logits, ref["logits"])]
+        out["prefill_logits"], out["decode_logits"] = errs[0], worst(
+            errs[1:])
+        out["finite"] = all(bool(torch.isfinite(g).all()) for g in logits)
+    return out
+
+
+def dist_moe_period(torch, SH, M, T, MOE, CO, serve, cfg, world) -> dict:
+    """16f on four cards: Jamba's full pattern period with its 16 experts
+    (89 GB of bf16 weights: no card holds it whole), placed on (data,
+    model) = (2, 2) layer by layer as drawn; prefill and decode timed,
+    memory a card, one decode step's collectives; then each MoE layer's
+    placed prefill output against ``moe_forward`` on card 0 on the same
+    gathered input, routes (replayed) and weights (gathered one layer at
+    a time)."""
+    from repro_torch.models.shards import whole
+    import statistics
+    n_seq, prompt_len, steps = DIST_MOE
+    mesh = M.make_mesh(dist_mesh(world))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build(cfg, seed=0, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated()
+    seen = []
+    for f in moe_ffns(T, model):
+        f.record = []
+
+        def capture(x, _f=f, _apply=f.apply_aux):
+            out = _apply(x)
+            seen.append((_f, x, out[0]))
+            return out
+        f.apply_aux = capture
+
+    def caches():
+        return SH.shard_caches(cfg, T.init_caches(
+            cfg, n_seq, prompt_len + steps, device="cuda"), mesh, n_seq)
+    dp = SH.spec(SH.fit_batch_axes(mesh, n_seq))
+
+    def wrap(t):
+        return SH.place(t, dp, mesh)
+    first = []
+    logits = moe_serve(torch, SH, T, serve, cfg, model, caches(), wrap,
+                       first)
+    checks = list(seen)[:sum(1 for _ in moe_ffns(T, model))]
+    seen.clear()
+    times = []
+    moe_serve(torch, SH, T, serve, cfg, model, caches(), wrap, times)
+    seen.clear()
+    # one decode step's collectives, on fresh caches after a prefill
+    c = caches()
+    n_prompt = torch.full((n_seq, prompt_len), 1, dtype=torch.int32,
+                          device="cuda")
+    with torch.no_grad(), SH.implicit_replication():
+        T.forward_prefill(model, cfg, wrap(n_prompt), c, attn_impl="qchunk",
+                          ssm_impl="ref")
+        with CO.CollectiveRecord() as rec:
+            T.forward_decode(model, cfg, wrap(torch.ones(
+                n_seq, dtype=torch.int32, device="cuda")), c,
+                wrap(torch.full((n_seq,), prompt_len, dtype=torch.int32,
+                                device="cuda")), attn_impl="dense")
+    del c
+    seen.clear()
+    peak = torch.cuda.max_memory_allocated()
+
+    layer_errs, layer_equal, layer_aux = [], [], []
+    for f, x, y in checks:
+        r = f.record[0]
+        x_all, y_all = whole(x), whole(y)
+        p = {n: whole(getattr(f, n)) for n in ("router", "w_gate", "w_up",
+                                               "w_down")}
+        keep, pos, gate = whole(r.keep), whole(r.pos), whole(r.gate_idx)
+        if torch.distributed.get_rank() == 0:
+            with torch.no_grad():
+                want, wr = MOE.moe_forward(p, x_all, f.dims, routes=gate)
+            layer_equal.append(torch.equal(wr.keep, keep)
+                               and torch.equal(wr.pos, pos))
+            layer_errs.append(rel_err(torch, y_all, want)[0])
+            layer_aux.append(abs(float(r.aux) - float(wr.aux)))
+        del p, x_all, y_all
+        torch.cuda.empty_cache()
+    for f in moe_ffns(T, model):
+        del f.apply_aux
+    return {"mesh": dist_mesh(world), "params": sum(
+        p.numel() for p in model.parameters()), "build_s": build_s,
+            "weights_bytes": weights, "peak": peak,
+            "prefill_s": times[0], "first_prefill_s": first[0],
+            "decode_s": times[1:],
+            "decode_ms": statistics.median(times[1:]) * 1e3,
+            "prefill_tok_s": n_seq * prompt_len / times[0],
+            "collective_counts": CO.collective_count(rec),
+            "collectives": CO.collective_bytes(rec),
+            "layer_equal": layer_equal, "layer_errs": layer_errs,
+            "layer_aux": layer_aux,
+            "finite": all(bool(torch.isfinite(g).all()) for g in logits)}
+
+
 def dist_kernel_refusal(torch, SH, M, fops, world: int) -> str:
     """16e: a kernel wrapper given a DTensor raises."""
     mesh = M.make_mesh({"data": world})
@@ -4584,6 +4794,19 @@ def phase16_rank(rank: int, world: int, base_loss, ckpt_dir: str) -> dict:
     torch.cuda.empty_cache()
     timed("16d", lambda: dist_decode(torch, SH, M, T, serve,
                                      get_arch("granite-3-8b"), world))
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs.jamba15_large_398b import DEPTH4, PERIOD
+    from repro_torch.models import moe as MOE
+    timed("16f_check", lambda: dist_moe_check(torch, dist, SH, M, T, serve,
+                                              DEPTH4, world))
+    gc.collect()
+    torch.cuda.empty_cache()
+    if world == 4:
+        timed("16f", lambda: dist_moe_period(torch, SH, M, T, MOE, CO,
+                                             serve, PERIOD, world))
+        gc.collect()
+        torch.cuda.empty_cache()
     out["counts"] = all_counts(kernels, others)
     out["16e"] = dist_kernel_refusal(torch, SH, M, fops, world)
     out["secs"] = secs
@@ -4606,7 +4829,7 @@ def phase_distributed(torch, base) -> None:
     try:
         res = M.run_ranks(phase16_rank, world, base,
                           str(work / "ckpt"), backend="nccl",
-                          work_dir=str(work), timeout_s=600)
+                          work_dir=str(work), timeout_s=900)
     except (RuntimeError, TimeoutError) as e:
         fail(f"phase 16: {e}")
     wall = time.perf_counter() - t0
@@ -4690,12 +4913,70 @@ def phase_distributed(torch, base) -> None:
         f"(steps {d['step_s']}), "
         f"{statistics.median(d['unsharded_step_s']) * 1e3:.3f} ms "
         f"unsharded")
+    card = gpu_name_and_limit()
+    f = r["16f_check"]
+    log(f"phase 16f: Jamba-1.5-Large cut to depth 4 (Mamba, Mamba+MoE, "
+        f"Mamba, attention+MoE; 45.0 GB of bf16 weights), 16 experts at "
+        f"published widths, on (data, model) = {tuple(f['mesh'].values())}, "
+        f"{DIST_MOE[0]} x {DIST_MOE[1]} prefill + {DIST_MOE[2]} decode "
+        f"steps on the plain paths, placed with the routes card 0 recorded "
+        f"unplaced: kept masks and positions of all {f['moe_layers']} x "
+        f"{f['calls']} MoE calls equal {f['routes_equal']} "
+        f"({f['dropped']} pairs dropped), aux within {f['aux']:.3e}, "
+        f"logits rel prefill {f['prefill_logits']:.3e} decode "
+        f"{f['decode_logits']:.3e}; unplaced {f['unplaced_s']:.1f} s, "
+        f"placed {f['placed_s']:.1f} s, placed peak "
+        f"{f['peak'] / 2**30:.3f} GiB rank 0 [{card}]")
+    log(f"phase 16f: aux (unplaced, placed) by layer and call: "
+        f"{f['aux_pairs']}")
+    if world == 4:
+        g = r["16f"]
+        log(f"phase 16f: Jamba-1.5-Large's full period (8 layers, 4 MoE "
+            f"layers of 16 experts, {g['params']} parameters as placed, "
+            f"89.4 GB of bf16 weights) on (data, model) = "
+            f"{tuple(g['mesh'].values())}, built layer by layer in "
+            f"{g['build_s']:.1f} s: prefill {DIST_MOE[0]} x {DIST_MOE[1]} "
+            f"{g['prefill_s'] * 1e3:.1f} ms = {g['prefill_tok_s']:.1f} "
+            f"tokens/s (first run {g['first_prefill_s'] * 1e3:.1f} ms); "
+            f"decode {g['decode_ms']:.3f} ms a step (steps "
+            f"{g['decode_s']}) [{card}]")
+        log(f"phase 16f: memory a card (rank 0): weights "
+            f"{g['weights_bytes'] / 2**30:.3f} GiB, peak "
+            f"{g['peak'] / 2**30:.3f} GiB; collectives a decode step "
+            f"{g['collective_counts']}, bytes a device {g['collectives']} "
+            f"[{card}]")
+        log(f"phase 16f: each MoE layer's placed prefill output vs "
+            f"moe_forward on card 0 (same gathered input, routes replayed, "
+            f"weights gathered one layer at a time): kept masks and "
+            f"positions equal {g['layer_equal']}, rel "
+            f"{[f'{e:.3e}' for e in g['layer_errs']]} (bar "
+            f"{DIST_TOL['moe_out']}), aux within "
+            f"{[f'{e:.3e}' for e in g['layer_aux']]} (bar "
+            f"{DIST_TOL['aux']})")
+    else:
+        log("phase 16f: the full period (89.4 GB) needs four cards; "
+            f"{world} here")
     for rank, rr in enumerate(res):
         check(all(v == 0 for v in rr["counts"].values()),
               f"phase 16e: rank {rank} launched {rr['counts']}")
-    log(f"phase 16e: every rank's 16c and 16d launched no kernel "
+    log(f"phase 16e: every rank's 16c, 16d and 16f launched no kernel "
         f"({res[0]['counts']}); a kernel given a DTensor raised: "
         f"{r['16e']}")
+    if world == 4:
+        check(all(g["layer_equal"]) and len(g["layer_equal"]) == 4
+              and worst(g["layer_errs"]) <= DIST_TOL["moe_out"]
+              and worst(g["layer_aux"]) <= DIST_TOL["aux"] and g["finite"],
+              f"phase 16f: period placed vs moe_forward on card 0: kept and "
+              f"positions equal {g['layer_equal']}, outputs rel "
+              f"{g['layer_errs']}, aux {g['layer_aux']}, finite "
+              f"{g['finite']}")
+    check(f["routes_equal"] and f["aux"] <= DIST_TOL["aux"]
+          and f["prefill_logits"] <= DIST_TOL["decode"]
+          and f["decode_logits"] <= DIST_TOL["decode"] and f["finite"],
+          f"phase 16f: depth 4 placed vs card 0 unplaced: kept masks and "
+          f"positions equal {f['routes_equal']}, aux {f['aux']}, logits "
+          f"rel prefill {f['prefill_logits']} decode "
+          f"{f['decode_logits']}, finite {f['finite']}")
 
 
 def gpu_name_and_limit() -> str:

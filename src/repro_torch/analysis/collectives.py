@@ -17,7 +17,7 @@ shard, an all-reduce its input's size.
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -65,14 +65,28 @@ def _bytes(x) -> int:
     return 0
 
 
+def _group_name(func, args, kwargs) -> Optional[str]:
+    """The process group's name a functional collective was given (its
+    ``group_name`` argument), else None."""
+    for i, a in enumerate(func._schema.arguments):
+        if a.name == "group_name":
+            return kwargs.get("group_name", args[i] if i < len(args)
+                              else None)
+    return None
+
+
 class CollectiveRecord(TorchDispatchMode):
     """Notes ``(category, result bytes)`` of every collective dispatched
-    while it is active, in call order (``self.ops``).  Enter it around
-    the step: ``with CollectiveRecord() as rec: step(...)``."""
+    while it is active, in call order (``self.ops``), and beside each the
+    name of its process group where the op names it (``self.groups``:
+    ``DeviceMesh.get_group(axis).group_name`` tells a mesh axis's; None
+    for a ``c10d`` op).  Enter it around the step: ``with
+    CollectiveRecord() as rec: step(...)``."""
 
     def __init__(self):
         super().__init__()
         self.ops: List[Tuple[str, int]] = []
+        self.groups: List[Optional[str]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -86,6 +100,7 @@ class CollectiveRecord(TorchDispatchMode):
             category, arg = hit
             self.ops.append((category,
                              _bytes(out if arg is None else args[arg])))
+            self.groups.append(_group_name(func, args, kwargs or {}))
         return out
 
 

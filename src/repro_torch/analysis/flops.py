@@ -77,6 +77,26 @@ def expert_param_count(cfg: ArchConfig) -> int:
     return 3 * cfg.d_model * e_ff * cfg.n_experts * n_moe
 
 
+def ep_dispatch_bytes(cfg: ArchConfig, cell: ShapeCell, dp: int) -> float:
+    """The analytic EP term of :func:`cell_cost`: the MoE layers'
+    all-to-all dispatch + combine bytes a device over the EP (= data)
+    group, every token's k rows balanced over the ranks.  Device-limited
+    routing (A4) bounds per-token destinations to route_limit groups;
+    int8 dispatch (A5) halves the dispatch leg."""
+    n_moe = _counts(cfg)[5]
+    B, S = cell.global_batch, cell.seq_len
+    decode = cell.kind == "decode"
+    mult = 3.0 if cell.kind == "train" else 1.0
+    T = B if decode else B * S
+    t_local = T / min(dp, max(1, B)) if decode else T / dp
+    fanout = cfg.top_k
+    if cfg.route_groups > 1 and 0 < cfg.route_limit:
+        fanout = min(cfg.top_k, cfg.route_limit)
+    dispatch_b = 1.0 if cfg.int8_dispatch else BF16
+    per_leg = t_local * fanout * cfg.d_model * n_moe * (dp - 1) / dp
+    return mult * per_leg * (dispatch_b + BF16)  # dispatch + combine
+
+
 def cell_cost(cfg: ArchConfig, cell: ShapeCell, n_dev: int,
               *, dp: int, tp: int, n_micro: int = 1,
               fsdp: bool = False, append_impl: str = "scatter",
@@ -173,15 +193,7 @@ def cell_cost(cfg: ArchConfig, cell: ShapeCell, n_dev: int,
         grad_local = ne_params / (tp * (param_dp if fsdp else 1)) * F32
         coll += 2.0 * grad_local * (dp - 1) / max(1, dp)
     if n_moe:
-        # all-to-all dispatch+combine over the EP(=data) group.
-        # Device-limited routing (A4) bounds per-token destinations to
-        # route_limit groups; int8 dispatch (A5) halves the dispatch leg.
-        fanout = cfg.top_k
-        if cfg.route_groups > 1 and 0 < cfg.route_limit:
-            fanout = min(cfg.top_k, cfg.route_limit)
-        dispatch_b = 1.0 if cfg.int8_dispatch else BF16
-        per_leg = t_local * fanout * d * n_moe * (dp - 1) / dp
-        coll += mult * per_leg * (dispatch_b + BF16)  # dispatch + combine
+        coll += ep_dispatch_bytes(cfg, cell, dp)
         # EPxTP expert-ff term: SPMD picks the cheaper of (a) all-reduce
         # of the (E_local, C, d) expert outputs (ff-sharded compute) or
         # (b) all-gathering the model-sharded expert weights per

@@ -49,3 +49,24 @@ ONE_CHIP = dataclasses.replace(
     source="arXiv:2403.19887; ai21labs/AI21-Jamba-1.5-Large config.json "
            "(one pattern period of 8 layers; dense FFNs of width 24576 in "
            "place of the 16 experts)")
+
+#: Jamba-1.5-Large cut to depth 4 with all 16 experts (top-2, MoE on the
+#: odd layers), every width as published: Mamba, Mamba + MoE, Mamba,
+#: then attention + MoE -- all three mixers and two MoE layers.
+#: 22,484,459,520 parameters, 45.0 GB in bf16.  Not registered.
+DEPTH4 = dataclasses.replace(
+    CONFIG, n_layers=4, pattern=("mamba", "mamba", "mamba", "attn"),
+    source="arXiv:2403.19887; ai21labs/AI21-Jamba-1.5-Large config.json "
+           "(layers 0-3 of the pattern: Mamba, Mamba+MoE, Mamba, "
+           "attention+MoE; all 16 experts)")
+
+#: One whole period of Jamba-1.5-Large's pattern with all 16 experts:
+#: 8 layers (7 Mamba, attention at slot 3, MoE on the odd layers), every
+#: width as published.  44,701,360,128 parameters, 89.4 GB in bf16: more
+#: than one 80 GB card holds, so it is served placed over four.  Not
+#: registered.
+PERIOD = dataclasses.replace(
+    CONFIG, n_layers=8,
+    source="arXiv:2403.19887; ai21labs/AI21-Jamba-1.5-Large config.json "
+           "(one pattern period of 8 layers with its 4 MoE layers of 16 "
+           "experts)")

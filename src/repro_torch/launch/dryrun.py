@@ -211,6 +211,13 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
                           "coll_bytes": cost_a.coll_bytes,
                           "model_flops": cost_a.model_flops}
     result["analytic_detail"] = cost_a.detail
+    if cfg.n_experts:
+        # the MoE dispatch's recorded all-to-all bytes (equal splits sized
+        # to what one rank may send another) beside the analytic EP term
+        # (every token's k rows, balanced over the data ranks)
+        result["ep_all_to_all"] = {
+            "recorded_bytes": result["collectives"].get("all-to-all", 0),
+            "analytic_bytes": FL.ep_dispatch_bytes(cfg, cell, dp)}
     result["ok"] = True
     return result
 
@@ -256,7 +263,11 @@ def main(argv=None) -> None:
                       f"step={res['step_s']}s "
                       f"bottleneck={rl['bottleneck']} "
                       f"t={max(rl['t_compute_s'], rl['t_memory_s'], rl['t_collective_s']):.4f}s "
-                      f"({time.time()-t0:.0f}s)", flush=True)
+                      f"({time.time()-t0:.0f}s)"
+                      + (f" all-to-all={ep['recorded_bytes']}B "
+                         f"(analytic EP {ep['analytic_bytes']:.4g}B)"
+                         if (ep := res.get("ep_all_to_all")) else ""),
+                      flush=True)
             except Exception as e:  # noqa: BLE001 -- record and continue
                 res = {"arch": arch, "shape": shape, "mesh": mesh_kind,
                        "ok": False, "error": f"{type(e).__name__}: {e}",

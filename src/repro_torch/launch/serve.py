@@ -43,12 +43,29 @@ from repro_torch.models import transformer as T
 
 
 def build(cfg: ArchConfig, *, seed: int, device,
-          dtype: torch.dtype = torch.bfloat16) -> T.Transformer:
+          dtype: torch.dtype = torch.bfloat16, mesh=None) -> T.Transformer:
     """The model's parameters, drawn on ``device`` from a generator on
-    that device seeded with ``seed``."""
+    that device seeded with ``seed``.  With ``mesh`` (every rank calls
+    it), each layer is placed by the production rules
+    (``launch.sharding``) as soon as it is drawn, so no card holds more
+    of the model than its shards and one layer: the same values as the
+    unplaced build's, placed."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return T.init_params(cfg, gen, device=device, dtype=dtype)
+    if mesh is None:
+        return T.init_params(cfg, gen, device=device, dtype=dtype)
+    from repro_torch.launch import sharding as SH
+    specs, stacked = SH.model_shardings(
+        T.init_params(cfg, device="meta", dtype=dtype), mesh)
+    if stacked:
+        raise ValueError(f"{cfg.name}: leaves {sorted(stacked)} are placed "
+                         f"stacked over their layers; build whole and "
+                         f"call sharding.shard_model")
+    model = T.init_params(
+        cfg, gen, device=device, dtype=dtype,
+        on_block=lambda i, blk: SH.place_module(blk, specs, mesh,
+                                                f"blocks.{i}."))
+    return SH.place_module(model, specs, mesh)
 
 
 #: the reference CLI's memory rows for a VLM or audio model

@@ -45,7 +45,7 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 # a plain tensor beside a DTensor counts as replicated: the context the
 # placed paths (the train step, prefill, decode) run in
@@ -299,7 +299,12 @@ def place(t: torch.Tensor, s: Spec, mesh) -> DTensor:
     """``t`` (the same full tensor on every rank) as a DTensor by ``s``:
     each rank keeps a copy of its shard (so the full tensor can be
     freed), nothing is communicated."""
-    d = distribute_tensor(t, mesh, placements(s, mesh), src_data_rank=None)
+    pls = placements(s, mesh)
+    if all(mesh.size(i) == 1 for i, p in enumerate(pls) if p.is_shard()):
+        # whole on every rank: no split, no copy
+        return DTensor.from_local(t, mesh, pls, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    d = distribute_tensor(t, mesh, pls, src_data_rank=None)
     local = d.to_local()
     if not local.is_meta and local.numel() < t.numel() and (
             local.untyped_storage().data_ptr()
@@ -333,19 +338,39 @@ class StackedParams(nn.Module):
         whose shard holds it contributes its row and the others zeros,
         summed over that axis (one all-reduce of this repetition's
         bytes, which the collective record sees) -- the FSDP gather at
-        use, of the one repetition the layer reads."""
-        mine = self.stack.to_local()
+        use, of the one repetition the layer reads.  Its gradient (summed
+        over the axis where the ranks' uses were partial, by the
+        returned DTensor's backward) goes to the owner's row, zeros to
+        the other ranks' stacks: every rank takes the same backward."""
         per_rank = -(-self.stack.shape[0] // self.mesh.size(self.axis))
         owner, row = divmod(r, per_rank)
-        part = (mine[row] if self.mesh.get_local_rank(self.axis) == owner
-                else mine.new_zeros(mine.shape[1:]))
-        pls = list(self.rep_placements)
-        pls[self.axis] = Partial()
+        part = _OwnerRow.apply(
+            self.stack.to_local(), row,
+            self.mesh.get_local_rank(self.axis) == owner,
+            self.mesh.get_group(self.axis))
         shape = self.stack.shape[1:]
         return DTensor.from_local(
-            part, self.mesh, pls, run_check=False, shape=shape,
-            stride=torch.empty(shape, device="meta").stride()
-        ).redistribute(self.mesh, self.rep_placements)
+            part, self.mesh, self.rep_placements, run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+class _OwnerRow(torch.autograd.Function):
+    """Row ``row`` of the owner's local stack, summed over ``group`` with
+    the other ranks' zeros (an all-reduce); backward, the (whole)
+    gradient into that row on the owner, zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, mine, row: int, owner: bool, group):
+        ctx.row, ctx.owner, ctx.shape = row, owner, mine.shape
+        part = mine[row] if owner else mine.new_zeros(mine.shape[1:])
+        return shards.summed(part.contiguous(), [group])
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.new_zeros(ctx.shape)
+        if ctx.owner:
+            out[ctx.row] = grad
+        return out, None, None, None
 
 
 class _Repetition(nn.Module):
@@ -377,8 +402,8 @@ def model_shardings(model: T.Transformer, mesh
     """({parameter name: spec}, {reference path: spec}): the spec of each
     parameter's reference leaf, less the repetition entry for a layer of
     a stacked leaf; and the leaves whose spec shards that repetition
-    entry, which are placed stacked (:class:`StackedParams`), with their
-    whole spec."""
+    entry over more than one rank, which are placed stacked
+    (:class:`StackedParams`), with their whole spec."""
     cfg = model.cfg
     fsdp = _needs_fsdp(cfg)
     params = dict(model.named_parameters())
@@ -390,9 +415,34 @@ def model_shardings(model: T.Transformer, mesh
                          + shape, cfg, mesh, fsdp)
         for n in names:
             per_layer[n] = s[1:] if is_stacked else s
-        if is_stacked and s[0] is not None:
+        if is_stacked and _size(s[0], mesh) > 1:
             stacked[path] = s
     return per_layer, stacked
+
+
+def _size(entry, mesh) -> int:
+    """The number of shards a spec entry makes on ``mesh`` (1 for None:
+    a dim split over axes of size 1 is whole on every rank)."""
+    shape = mesh_shape(mesh)
+    out = 1
+    for ax in ((entry,) if isinstance(entry, str) else (entry or ())):
+        out *= shape[ax]
+    return out
+
+
+def place_module(mod: nn.Module, specs: Dict[str, Spec], mesh,
+                 prefix: str = "", skip=frozenset()) -> nn.Module:
+    """Place each parameter of ``mod`` that is not placed yet, nor named
+    in ``skip``, by ``specs[prefix + name]`` (:func:`model_shardings`'
+    per-layer specs), in place; returns ``mod``."""
+    for name, p in list(mod.named_parameters()):
+        if shards.is_dtensor(p) or prefix + name in skip:
+            continue
+        sub, attr = _module_of(mod, name)
+        sub._parameters[attr] = nn.Parameter(
+            place(p.detach(), specs[prefix + name], mesh),
+            requires_grad=p.requires_grad)
+    return mod
 
 
 def shard_model(model: T.Transformer, mesh) -> T.Transformer:
@@ -406,14 +456,8 @@ def shard_model(model: T.Transformer, mesh) -> T.Transformer:
     specs, stacked_specs = model_shardings(model, mesh)
     names = T.leaf_names(model)
     params = dict(model.named_parameters())
-    in_stacks = {n for path in stacked_specs for n in names[path]}
-    for name, p in params.items():
-        if name in in_stacks:
-            continue
-        mod, attr = _module_of(model, name)
-        mod._parameters[attr] = nn.Parameter(
-            place(p.detach(), specs[name], mesh),
-            requires_grad=p.requires_grad)
+    place_module(model, specs, mesh, skip={
+        n for path in stacked_specs for n in names[path]})
     stacked = {}
     for path, s in stacked_specs.items():
         holder = StackedParams(place(torch.stack(

@@ -163,8 +163,12 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Tied unembedding, ``x @ table.T`` accumulated and returned in f32
-    (a bf16 ``matmul`` would round the logits to bf16)."""
-    return x.float() @ table.float().t()
+    (a bf16 ``matmul`` would round the logits to bf16).  Placed, x's
+    pending partial sums are summed and a table also split along d (FSDP)
+    is gathered along d, so the logits come out split on the vocabulary
+    (:func:`cross_entropy`) and the table is not gathered over it."""
+    return (shards.reduced(x).float()
+            @ shards.whole_dim(table, 1).float().t())
 
 
 # --------------------------------------------------------------------- #

@@ -16,7 +16,14 @@ local shards, and every collective it needs is called explicitly (so
 * :func:`on_shards`: attention that is local along its split dims (batch
   and heads), run on each rank's shards under ``local_map``;
 * :func:`embed` / :func:`cross_entropy`: the vocabulary-parallel lookup
-  and NLL.
+  and NLL;
+* :func:`summed` / :func:`grad_summed` / :func:`all_to_all`: the
+  collectives of a hand-written placed op (``models/moe`` uses them)
+  with their gradients: a sum over ranks whose backward passes the
+  gradient through, its mirror (the identity forward, the sum backward),
+  and an equal-split all-to-all whose backward is the reverse one;
+* :func:`local_weight`: this rank's block of a weight, its gradient
+  summed over the mesh axes whose ranks use it on tokens of their own.
 """
 
 from __future__ import annotations
@@ -54,6 +61,27 @@ def local(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's shard of ``t`` under ``placements`` (a plain ``t`` is
     cut locally)."""
     return _placed(t, mesh).redistribute(mesh, placements).to_local()
+
+
+def reduced(t: torch.Tensor) -> torch.Tensor:
+    """A placed ``t`` with its partial sums summed (DTensor keeps a
+    row-parallel product's sum pending through linear ops); any other
+    ``t`` as it is."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t
+
+
+def whole_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with dim ``dim`` whole on every rank (an all-gather over the
+    mesh axes that split it, as FSDP gathers a weight at use); a plain
+    ``t``, or one not split there, as it is."""
+    if isinstance(t, DTensor) and any(p.is_shard(dim)
+                                      for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_shard(dim) else p for p in t.placements])
+    return t
 
 
 def _offset(c: DTensor):
@@ -121,11 +149,14 @@ def on_shards(fn: Callable, q: torch.Tensor, k: torch.Tensor,
     heads; else its heads are gathered).  Each rank runs ``fn`` on its
     shards (``local_map``) and the output is placed as q is: no
     collective, where DTensor's einsum rules may flatten two split dims
-    (and refuse).  Anything else -- a plain q, a sequence-sharded K/V --
-    goes to ``fn`` as it is."""
-    args = (q, k, v) + ((lengths,) if lengths is not None else ())
+    (and refuse).  Pending partial sums (a projection whose weight is
+    split along its input, FSDP) are summed first.  Anything else -- a
+    plain q, a sequence-sharded K/V -- goes to ``fn`` as it is."""
     if not isinstance(q, DTensor):
-        return fn(*args)
+        return fn(*((q, k, v) + ((lengths,) if lengths is not None
+                                 else ())))
+    q, k, v = reduced(q), reduced(k), reduced(v)
+    args = (q, k, v) + ((lengths,) if lengths is not None else ())
     mesh = q.device_mesh
     q_pl = []
     for i, pl in enumerate(q.placements):
@@ -150,18 +181,131 @@ def on_shards(fn: Callable, q: torch.Tensor, k: torch.Tensor,
         *(_placed(t, mesh) for t in args))
 
 
+def _sum(x: torch.Tensor, groups) -> torch.Tensor:
+    for g in groups:
+        x = fc.wait_tensor(fc.all_reduce(x, "sum", g))
+    return x
+
+
 class _SumOverShards(torch.autograd.Function):
     """All-reduce (sum) over ``groups`` forward, the identity backward."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, groups) -> torch.Tensor:
-        for g in groups:
-            x = fc.wait_tensor(fc.all_reduce(x, "sum", g))
-        return x
+        return _sum(x, groups)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         return grad, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity forward, an all-reduce (sum) of the gradient over
+    ``groups`` backward: an input that each rank of ``groups`` uses with
+    its own shard of the weights gets its whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, groups) -> torch.Tensor:
+        ctx.groups = groups
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _sum(grad.contiguous(), ctx.groups), None
+
+
+def summed(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` summed over the ranks of each process group in ``groups`` (an
+    all-reduce each); the gradient passes through: every rank holds the
+    sum's whole gradient."""
+    return _SumOverShards.apply(x, groups) if groups else x
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, groups=()) -> torch.Tensor:
+    """``a @ w`` where ``a``'s last dim and ``w``'s rows are split over
+    ranks, summed over them: ``groups`` for local shards, and on DTensors
+    the mesh dims that split ``a``'s last dim.  Each rank's partial product
+    stays in f32 until the sum and is rounded to ``a``'s dtype once after
+    it, as one card's product rounds its f32 sum once (bf16 partials,
+    each rounded and then summed in bf16, miss it by up to 1.5 ulp).  With
+    no split, or in f32, the product as it is, summed."""
+    if is_dtensor(a):
+        split = any(p.is_shard() and p.dim in (-1, a.dim() - 1)
+                    and a.device_mesh.size(i) > 1
+                    for i, p in enumerate(a.placements))
+    else:
+        split = bool(groups)
+    if split and a.dtype != torch.float32:
+        if is_dtensor(a) or not a.is_cuda or (torch.is_grad_enabled() and (
+                a.requires_grad or w.requires_grad)):
+            y = a.float() @ w.float()
+        else:                   # products and sums in f32, no f32 copies
+            y = (torch.bmm if a.dim() == 3 else torch.mm)(
+                a, w, out_dtype=torch.float32)
+        return (reduced(y) if is_dtensor(y) else summed(y, groups)).to(
+            a.dtype)
+    return reduced(a @ w) if is_dtensor(a) else summed(a @ w, groups)
+
+
+def grad_summed(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over ``groups`` (see
+    :class:`_SumGrad`)."""
+    return _SumGrad.apply(x, groups) if groups else x
+
+
+def gather0(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` stacked along dim 0, in rank order
+    (an all-gather; no gradient)."""
+    import torch.distributed as dist
+    out = torch.ops._c10d_functional.all_gather_into_tensor(
+        x.contiguous(), dist.get_world_size(group), group.group_name)
+    return fc.wait_tensor(out)
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    return fc.wait_tensor(fc.all_to_all_single(x.contiguous(), None, None,
+                                               group))
+
+
+class _AllToAll(torch.autograd.Function):
+    """An equal-split all-to-all along dim 0; its backward is the same
+    exchange of the gradient (block ``j`` came from rank ``j`` and goes
+    back there)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _a2a(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank ``i`` sends block ``j`` of ``x`` (dim 0 cut into as many equal
+    blocks as ``group`` has ranks) to rank ``j`` and gets its block ``j``
+    from rank ``i`` -- a fixed size, so nothing reads the values (it runs
+    on ``meta`` under a fake process group) -- with its gradient; None for
+    ``group`` (one rank) is the identity."""
+    if group is None:
+        return x
+    return (_AllToAll.apply(x, group) if x.dtype.is_floating_point
+            else _a2a(x, group))
+
+
+def local_weight(w: torch.Tensor, mesh, want, token_axes) -> torch.Tensor:
+    """This rank's block of weight ``w`` placed as ``want`` (redistributed
+    there if it is not: no communication from ``Replicate`` to ``Shard``),
+    as a plain tensor whose gradient flows back to ``w``: on each mesh dim
+    in ``token_axes`` where ``want`` replicates ``w``, the ranks use it on
+    tokens of their own, so its gradient there is a partial sum."""
+    w = _placed(w, mesh)
+    if list(w.placements) != list(want):
+        w = w.redistribute(mesh, want)
+    return w.to_local(grad_placements=[
+        Partial() if i in token_axes and pl.is_replicate() else pl
+        for i, pl in enumerate(want)])
 
 
 def embed(tokens: torch.Tensor, table: DTensor) -> torch.Tensor:

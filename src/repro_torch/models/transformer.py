@@ -607,13 +607,18 @@ def _ffn_params(generator, cfg: ArchConfig, device, dtype):
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device="cuda",
-                dtype: torch.dtype = torch.bfloat16) -> Transformer:
+                dtype: torch.dtype = torch.bfloat16,
+                on_block: Optional[Callable[[int, "Block"], None]] = None
+                ) -> Transformer:
     """Random parameters with the reference's distributions (N(0, 1/d_in)
     dense weights, N(0, 0.02^2) embedding, unit norms), drawn on
     ``device`` from ``generator``.  The draws are not the reference's
     (``jax.random`` and torch generators differ): tests carry the
     reference's parameters over with :func:`params_from_numpy`.  On the
-    ``meta`` device nothing is drawn or allocated."""
+    ``meta`` device nothing is drawn or allocated.  ``on_block(i,
+    block)`` is called on each layer as soon as it is drawn (before the
+    next draw; ``launch.serve.build`` places it there, so that a model
+    larger than one card is never whole on one)."""
     _check_supported(cfg)
     device = torch.device(device)
     embed = L.embedding_init(generator, cfg.padded_vocab, cfg.d_model,
@@ -634,7 +639,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                      _norm_params(cfg, device, dtype)
                      if ffn is not None else None, ffn, cross, norm_c)
 
-    blocks = [block(kind, moe) for kind, moe in layer_plan(cfg)]
+    blocks = []
+    for i, (kind, moe) in enumerate(layer_plan(cfg)):
+        blocks.append(block(kind, moe))
+        if on_block is not None:
+            on_block(i, blocks[-1])
     encoder = [block(block_kind(cfg, "attn"), False)
                for _ in range(cfg.encoder_layers)]
     return Transformer(cfg, embed, blocks, _norm_params(cfg, device, dtype),

@@ -91,6 +91,8 @@ def update(cfg: AdamWConfig, params: nn.Module, grads: List[torch.Tensor],
     mus = dict(state.mu.named_parameters())
     nus = dict(state.nu.named_parameters())
     for (name, p), g in zip(params.named_parameters(), grads, strict=True):
+        if not p.numel():   # the empty stand-in of a layer read off a stack
+            continue
         mu, nu = mus[name], nus[name]
         g = g.float() * clip
         mu.copy_(b1 * mu + (1 - b1) * g)
