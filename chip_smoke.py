@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase16     # phase 16 alone, on every card
+    python3 chip_smoke.py --phase17     # phase 17 alone, on one card
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``);
 run from a checkout, since it imports ``src/repro_torch``.  Phases, each
@@ -82,15 +83,17 @@ of which stops the run with a non-zero exit when it fails:
     both fused selections held bit for bit against their plain versions
     and timed at (a)'s 128-lane SUPERBLOCK table and (b)'s 48-lane union
     table;
-14. the paper's per-op benchmarks and the legacy oracles
-    (:data:`WORKLOAD_PARAMS`), each section held to
+14. (run after phase 17) the paper's per-op benchmarks and the legacy
+    oracles (:data:`WORKLOAD_PARAMS`), each section held to
     ``tests/data/torch_workloads_zn540.json`` (counts, DLWA and page
     totals exactly, clocks and interference factors at rel 1e-5, wear
     statistics at rel 1e-12): (a) Fig. 4b / 7d at zn540, concurrency
     1-7, FIXED and SUPERBLOCK, through the device shim, the per-op
-    ``LegacyZNSDevice`` and the batched engine sweep, which must agree
-    exactly; (b) Fig. 9's FIO grid on custom16 through the legacy device
-    and the engine (one geometry row through the shim too); (c) Table 4's
+    ``LegacyZNSDevice`` and the batched engine sweep (phase 17's Fig. 4b
+    / 7d, the same engines and parameters), which must agree exactly;
+    (b) Fig. 9's FIO grid on custom16 through the legacy device and the
+    engine (phase 17's Fig. 9; one geometry row through the shim too),
+    which must agree exactly; (c) Table 4's
     allocation latency on both devices for four specs; (d)-(f) the
     engine-vs-legacy comparators of the per-op workloads, the fleet
     sweep (32 configs and the 12-config union) and the arrays, each with
@@ -111,6 +114,29 @@ of which stops the run with a non-zero exit when it fails:
     bound and the plain loop on the prefix, on a random stream of the
     same length stepped whole, and on a one-channel stream of that length
     (the step chain's floor a request);
+17. the paper's figures at the paper's sizes (:data:`FIGURES`): every
+    function of ``src/repro_torch/tools/paper_figures.py`` -- Fig. 4a /
+    7a and Fig. 8 as occupancy sweeps, Fig. 4b / 7d and Table 3 as
+    interference sweeps, Fig. 9 as write programs, Fig. 7b (five FINISH
+    thresholds x 1M KVBench ops) and Fig. 7c (4 x 1M ops on one mount;
+    400 churn rounds on two lanes, wear-aware off and on) recorded and
+    replayed as one dispatch a spec, Table 4 on the device shim -- and
+    ``tools/ckpt_zns.run_all`` (every arch's checkpoint epochs, one lane
+    an arch), each held to the reference's outputs in
+    ``tests/data/torch_figures_paper.json`` (counts, pages, erases, DLWA
+    and SA exactly; interference factors and bandwidths at rel 1e-5,
+    Table 3's unrounded factors too; wear spreads at rel 1e-12; Table 4
+    by its keys, sample counts and N/A cells), with one ``alloc_select``
+    and one ``grow_select`` launch per op step of a non-FIXED engine
+    (a FIXED engine's ALLOC is a plain argmin), no row selection and one
+    ``page_clock`` launch per page-granular timing call (counts
+    zeroed before and read after each figure); each figure's seconds,
+    dispatches, op steps and lane-ops/s, its derived values beside the
+    paper's claim, Table 4's median microseconds on the card; both fused
+    selections held to their plain versions, bit for bit, at all 23
+    custom16 grids of the figures' selecting engines (each engine's own
+    lane table and random lanes), held and timed at Fig. 7c's two-lane
+    table, and ``page_clock`` at Table 3's widest stream;
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at the three serving paths' shapes (granite's,
    the Jamba cut's: S 2048, G 8, and the llama4-scout cut's: G 5, 40
@@ -354,7 +380,8 @@ per kernel and path (``path``: ``paper_report``, ``kv_zn540`` and
 Pallas contract and phase 14's legacy ALLOCs for its row kernel,
 granite-3-8b, the Jamba cut, the llama4-scout cut and the deepseek-v2
 cut, llama-3.2-vision-11b and seamless-m4t-medium for the serving
-kernels, phase 14 for ``page_clock``, xlstm-125m for the two xLSTM
+kernels, phase 14 for ``page_clock``, phase 17 for the fused selections
+and ``page_clock``, xlstm-125m for the two xLSTM
 scans), each with that
 path's launches and the times at its shapes -- and ``{"ok": true,
 "device": {...}}``.
@@ -1327,27 +1354,31 @@ def golden_part(section: dict) -> dict:
 
 
 def fleet_mismatches(got, want, where: str, key: str = "",
-                     time_keys=FLEET_TIME_KEYS) -> list:
+                     time_keys=FLEET_TIME_KEYS,
+                     stat_keys=FLEET_STAT_KEYS) -> list:
     """Where ``got`` differs from ``want``: clocks (keys ending in ``_s``
-    and ``time_keys``) at rel 1e-5, wear statistics
-    (:data:`FLEET_STAT_KEYS`) at rel 1e-12, the rest exactly."""
+    and ``time_keys``) at rel 1e-5, float64 wear statistics
+    (``stat_keys``) at rel 1e-12, the rest exactly (NaN equal to NaN)."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or sorted(got) != sorted(want):
             return [f"{where}: keys differ"]
         return [m for k in want
                 for m in fleet_mismatches(got[k], want[k], f"{where}.{k}",
-                                          k, time_keys)]
+                                          k, time_keys, stat_keys)]
     if isinstance(want, list):
         if not isinstance(got, list) or len(got) != len(want):
             return [f"{where}: lengths differ"]
         return [m for i, (a, b) in enumerate(zip(got, want))
                 for m in fleet_mismatches(a, b, f"{where}[{i}]", key,
-                                          time_keys)]
-    if key.endswith("_s") or key in time_keys:
-        if abs(got - want) > 1e-5 * abs(want):
+                                          time_keys, stat_keys)]
+    if isinstance(want, float) and math.isnan(want):
+        if not (isinstance(got, float) and math.isnan(got)):
+            return [f"{where}: {got!r} != NaN"]
+    elif key.endswith("_s") or key in time_keys:
+        if not abs(got - want) <= 1e-5 * abs(want):
             return [f"{where}: {got!r} vs {want!r} (rel 1e-5)"]
-    elif key in FLEET_STAT_KEYS:
-        if abs(got - want) > 1e-12 * abs(want):
+    elif key in stat_keys:
+        if not abs(got - want) <= 1e-12 * abs(want):
             return [f"{where}: {got!r} vs {want!r} (rel 1e-12)"]
     elif got != want:
         return [f"{where}: {got!r} != {want!r}"]
@@ -1634,12 +1665,16 @@ def spec_named(E, name: str):
             "vchunk2": E.vchunk(2)}[name]
 
 
-def workloads_section(P, np, name: str, recs=None) -> dict:
+def workloads_section(P, np, name: str, recs=None, figures=None) -> dict:
     """Run phase 14's section ``name`` through package ``P`` (the port on
     the card, or the reference when the golden file is written) and
     summarise it.  Keys starting with ``_`` are the run's own (timings,
     counts) and stay out of the golden file.  ``recs`` are the KV
-    recorders to replay in ``kv_legacy`` (recorded anew when None)."""
+    recorders to replay in ``kv_legacy`` (recorded anew when None).
+    ``figures`` are phase 17's outputs: ``interference`` and ``fio`` then
+    take their engine rows from its Fig. 4b / 7d sweeps and Fig. 9
+    points, which ran the same engines at the same parameters, instead of
+    running them again (None: run here)."""
     W, E, G, p = P.workloads, P.elements, P.geometry, WORKLOAD_PARAMS[name]
     out: dict = {}
     if name == "interference":
@@ -1655,9 +1690,11 @@ def workloads_section(P, np, name: str, recs=None) -> dict:
                     for c in p["concurrency"]]
             legacy = [point(P.legacy(flash, zone, spec, **kw), c)
                       for c in p["concurrency"]]
-            sweep = W.interference_sweep_engine(
-                P.make_engine(flash, zone, spec, **kw), p["concurrency"],
-                fill_occupancy=p["fill_occupancy"])
+            sweep = (figures["fig4b_7d_interference"]["_sweeps"][spec_name]
+                     if figures else W.interference_sweep_engine(
+                         P.make_engine(flash, zone, spec, **kw),
+                         p["concurrency"],
+                         fill_occupancy=p["fill_occupancy"]))
             out[spec_name] = {"rows": shim, "legacy_equal": legacy == shim,
                               "sweep_equal": sweep == shim}
         out["_fill"] = max(1, int(round(zone.zone_pages(flash)
@@ -1667,10 +1704,14 @@ def workloads_section(P, np, name: str, recs=None) -> dict:
         rows, eng_rows, shim_rows = [], [], []
         kw = {"max_active": p["max_active"]}
         fixed = spec_named(E, p["spec"])
+        points = {(r["geometry"], r["request_kib"], r["n_jobs"]): r
+                  for r in figures["fig9_throughput"]["_points"]
+                  } if figures else None
         for par, segs in p["geometries"]:
             geom = G.ZoneGeometry(parallelism=par, n_segments=segs)
             where = geom.describe(flash)
-            eng = P.make_engine(flash, geom, fixed, **kw)
+            eng = None if figures else P.make_engine(flash, geom, fixed,
+                                                     **kw)
             for req in p["request_kib"]:
                 for jobs in p["jobs"]:
                     dev = P.legacy(flash, geom, fixed, **kw)
@@ -1680,9 +1721,10 @@ def workloads_section(P, np, name: str, recs=None) -> dict:
                            "mib_per_job": p["mib_per_job"]}
                     rows.append(dict(W.write_benchmark(dev, **bkw),
                                      geometry=where))
-                    eng_rows.append(dict(W.write_benchmark_engine(eng,
-                                                                  **bkw),
-                                         geometry=where))
+                    eng_rows.append(
+                        points[(where, float(req), float(jobs))] if figures
+                        else dict(W.write_benchmark_engine(eng, **bkw),
+                                  geometry=where))
                     if [par, segs] == p["shim_geometry"]:
                         shim_rows.append(dict(W.write_benchmark(
                             P.shim(flash, geom, fixed, **kw), **bkw),
@@ -1818,14 +1860,18 @@ class Instances:
 
 
 class Calls:
-    """Counts the calls of ``module.name`` while open."""
+    """Counts the calls of ``module.name`` while open; with ``key``, also
+    apart by ``key(*args)`` (in ``by``)."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.n = module, name, 0
+    def __init__(self, module, name: str, key=None):
+        self.module, self.name, self.n, self.by = module, name, 0, {}
         self.inner = getattr(module, name)
 
         def counted(*args, **kw):
             self.n += 1
+            if key is not None:
+                k = key(*args)
+                self.by[k] = self.by.get(k, 0) + 1
             return self.inner(*args, **kw)
         setattr(module, name, counted)
 
@@ -2005,12 +2051,13 @@ def phase_page_clock(torch, np, P, pc_ops, pc_ref) -> dict:
 
 
 def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
-                    kv: dict) -> dict:
+                    kv: dict, figures: dict) -> dict:
     """Phase 14: every section of the paper's per-op benchmarks and the
     legacy oracles on the card, each held to the reference's golden
     summary; each page-granular timing call one ``page_clock`` launch and
     each legacy allocation one ``zns_alloc`` row launch; then ``page_clock``
-    against its plain version and timed."""
+    against its plain version and timed.  The engine paths of (a) and (b)
+    are phase 17's ``figures`` (:func:`workloads_section`)."""
     check(golden["params"] == json.loads(json.dumps(WORKLOAD_PARAMS)),
           "phase 14: the golden file's parameters are not this script's")
     P = torch_workloads_package()
@@ -2025,7 +2072,8 @@ def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
         t0 = time.perf_counter()
         try:
             got[name] = workloads_section(
-                P, np, name, recs=kv["recs"] if name == "kv_legacy" else None)
+                P, np, name, recs=kv["recs"] if name == "kv_legacy" else None,
+                figures=figures)
             torch.cuda.synchronize()
         finally:
             made.close()
@@ -2057,7 +2105,8 @@ def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
               f"phase 14: the interference paths disagree on {spec_name}")
     fill = intf["_fill"]
     log(f"phase 14 (a): Fig. 4b / 7d at zn540 (fill {fill} pages a zone, "
-        f"max_active 28): shim == legacy == engine sweep, exactly; "
+        f"max_active 28): shim == legacy == engine sweep (phase 17's), "
+        f"exactly; "
         f"concurrency | FIXED interference, dummy pages | SUPERBLOCK "
         f"interference, dummy pages | page steps (FIXED base + contended)")
     page_steps = 0
@@ -2082,7 +2131,8 @@ def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
                  f"{r['bandwidth_mib_s']:.1f}" for r in fio["rows"]
                  if r["geometry"] == where]
         log(f"phase 14 (b): Fig. 9 {where} MiB/s: {'; '.join(cells)}")
-    log(f"phase 14 (b): legacy == engine on all {len(fio['rows'])} points, "
+    log(f"phase 14 (b): legacy == engine (phase 17's Fig. 9) on all "
+        f"{len(fio['rows'])} points, "
         f"shim == legacy on {fio['shim_geometry']}")
     # (c) Table 4
     lat = got["alloc_latency"]
@@ -2161,6 +2211,326 @@ def phase_workloads(torch, np, ops, pc_ops, pc_ref, golden: dict,
             "page_clock_rows": {k: sum(c["page_clock_rows"][k]
                                        for c in counts.values())
                                 for k in ("chains", "whole")}}
+
+
+# --------------------------------------------------------------------- #
+# phase 17: the paper's figures
+# --------------------------------------------------------------------- #
+#: phase 17's figures: every function of ``tools/paper_figures.py`` at its
+#: paper defaults, and ``tools/ckpt_zns.run_all`` (the golden file's
+#: sections, named as the reference's ``benchmarks/run.py`` rows)
+FIGURES = ("fig4a_7a_dlwa_vs_occupancy", "fig4b_7d_interference",
+           "fig7b_sa_dlwa_tradeoff", "fig7c_wear", "fig7c_wear_leveling",
+           "fig8_geometry_sweep", "fig9_throughput", "table3_interference",
+           "table4_alloc_latency", "ckpt_zns_all_archs")
+#: golden keys built from clocks (interference factors, bandwidths): held
+#: at rel 1e-5
+FIGURE_TIME_KEYS = {"baseline", "silentzns", "worst_baseline",
+                    "worst_silentzns", "mib_s", "peak_P16_1job", "P8_1job",
+                    "P8_2jobs"}
+#: float64 wear statistics: held at rel 1e-12 (see FLEET_STAT_KEYS)
+FIGURE_STAT_KEYS = {"baseline_std", "silentzns_std"}
+#: the Table 3 stream that phase 17 times ``page_clock`` on: the widest
+#: custom16 geometry's FIXED contended stream
+FIGURE_STREAM = (16, 2)
+
+
+def figure_functions(device: str) -> dict:
+    """Phase 17's figures through the port on ``device``."""
+    import functools
+
+    from repro_torch.tools import ckpt_zns
+    from repro_torch.tools import paper_figures as PF
+    return {name: functools.partial(
+        ckpt_zns.run_all if name == "ckpt_zns_all_archs"
+        else getattr(PF, name), device=device) for name in FIGURES}
+
+
+def figure_summary(name: str, out: dict) -> dict:
+    """A figure's output as the golden file holds it: the run's own keys
+    dropped; Table 3 with its unrounded factors beside the rounded ones
+    (``unrounded``); Table 4, whose times are the card's own, as its keys
+    and each cell's sample count (None where the element does not apply
+    to the geometry)."""
+    if name == "table4_alloc_latency":
+        return json.loads(json.dumps({
+            "keys": sorted(k for k in out if not k.startswith("_")),
+            "n_allocs": out["_n_allocs"]}))
+    part = golden_part(out)
+    if name == "table3_interference":
+        part["unrounded"] = json.loads(json.dumps(out["_rows"]))
+    return part
+
+
+def figure_mismatches(name: str, got: dict, want: dict) -> list:
+    """Where a figure's summary (:func:`figure_summary`) differs from the
+    golden file's.  Table 3's unrounded factors are held at rel 1e-5;
+    its 2-decimal factors must be this run's own factors rounded, and
+    equal the golden file's unless a clock's last f32 bit moved a factor
+    across a rounding boundary (one step, 0.01), which also frees the
+    multi-segment gap by as much."""
+    if name != "table3_interference":
+        return fleet_mismatches(got, want, name, time_keys=FIGURE_TIME_KEYS,
+                                stat_keys=FIGURE_STAT_KEYS)
+    specs = {k for row in want["unrounded"] for k in row} - {"geometry"}
+    bad = fleet_mismatches(got["unrounded"], want["unrounded"],
+                           f"{name}.unrounded", time_keys=specs,
+                           stat_keys=FIGURE_STAT_KEYS)
+    if sorted(got) != sorted(want) or len(got["rows"]) != len(want["rows"]):
+        return bad + [f"{name}: keys or rows differ"]
+    flips = 0
+    for i, (g, w, u) in enumerate(zip(got["rows"], want["rows"],
+                                      got["unrounded"])):
+        if sorted(g) != sorted(w) or g["geometry"] != w["geometry"]:
+            bad.append(f"{name}.rows[{i}]: keys differ")
+            continue
+        for k in specs & set(w):
+            if math.isnan(w[k]) and math.isnan(g[k]):
+                continue
+            if g[k] != round(u[k], 2):
+                bad.append(f"{name}.rows[{i}].{k}: {g[k]!r} is not "
+                           f"round({u[k]!r}, 2)")
+            elif g[k] != w[k]:
+                flips += 1
+                if not abs(g[k] - w[k]) <= 0.0100001:
+                    bad.append(f"{name}.rows[{i}].{k}: {g[k]!r} != "
+                               f"{w[k]!r}")
+    gap = "fixed_minus_vchunk2_multiseg"
+    g, w = got[gap], want[gap]
+    if not (math.isnan(g) and math.isnan(w)) and not (
+            g == w or (flips and abs(g - w) <= 0.0100001)):
+        bad.append(f"{name}.{gap}: {g!r} != {w!r} ({flips} rounding "
+                   f"flips)")
+    return bad
+
+
+def figures_page_clock_timing(torch, np, pc_ops, pc_ref) -> dict:
+    """``page_clock`` at phase 17's widest stream: Table 3's FIXED
+    contended stream at custom16 :data:`FIGURE_STREAM`, held bit for bit
+    against the plain version on its first :data:`PAGE_CLOCK_PREFIX`
+    requests (on the CPU, as phase 14 does), then timed: the kernel
+    (CUDA events a call, ``torch.profiler`` a launch), the plain version
+    on a 2,000-request prefix, and the bound from these inputs."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import FIXED, ZoneGeometry, custom16, timing
+    from repro_torch.core import workloads as W
+    flash = custom16()
+    eng = W.make_engine(flash, ZoneGeometry(
+        parallelism=FIGURE_STREAM[0], n_segments=FIGURE_STREAM[1]), FIXED,
+        max_active=64, device="cuda")
+    c = min(8, eng.cfg.n_zones // 2)
+    prog = W.interference_program(eng, concurrency=c)
+    before = pc_ops.launches
+    _, trace = eng.run(eng.init_state(), prog)
+    streams = W._op_traces(eng, prog, trace)
+    traces = [t for t in streams[c:] if t is not None and len(t.luns)]
+    full, times = merged_stream(torch, SimpleNamespace(timing=timing),
+                                traces, flash)
+    n = full[0].shape[1]
+    k = min(PAGE_CLOCK_PREFIX, n)
+    prefix = [a[:, :k].contiguous() for a in full]
+    got, rows = page_clock_rows(pc_ops,
+                                lambda: pc_ops.simulate_fleet(*full, *times))
+    want = pc_ref.simulate_fleet_ref(*[a.cpu() if hasattr(a, "cpu") else a
+                                       for a in prefix + times])
+    check(torch.equal(got[0][:, :k].cpu(), want[0]) and rows == {
+        "chains": 1, "whole": 0},
+        f"phase 17: page_clock differs from its plain version on the "
+        f"Table 3 stream's prefix, or stepped it {rows}")
+    short = [a[:, :2000].contiguous() for a in full]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pc_ref.simulate_fleet_ref(*short, *times)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = cuda_ms(torch, lambda: pc_ops.simulate_fleet(*full, *times),
+                 iters=10)
+    dev_us = device_us(torch, lambda: pc_ops.simulate_fleet(*full, *times),
+                       "page_clock", reps=5)
+    pc_ops.launches = before                 # checks and timings
+    # as phase 14: each input read once, each output written once; the
+    # max and two adds of a request
+    return dict(bound(17 * n + 4, 3 * n), requests=n, ms=ms,
+                device_us=dev_us, plain_ms=plain_ms, plain_requests=2000,
+                prefix=k, max_abs_err=0.0, concurrency=c)
+
+
+def figures_fused_shapes(torch, np, ops, ref) -> dict:
+    """Both fused selections against their plain versions, bit for bit,
+    at every custom16 shape that a selecting engine of Fig. 8 and Tables
+    3-4 launches them at (each (geometry, element) pair's grid, at
+    ``max_active`` 64: 32 gives the same grids), on 8 lanes of the
+    engine's own lane table and on 8 random lanes of the same grid.
+    Returns the shapes checked and the largest difference (0)."""
+    from repro_torch.core import (FIXED, PAPER_GEOMETRIES, custom16,
+                                  engine, is_applicable)
+    from repro_torch.core import workloads as W
+    from repro_torch.tools.paper_figures import ELEMENTS
+    flash, dev, L = custom16(), torch.device("cuda"), 8
+    rng = np.random.default_rng(1717)
+    before = dict(ops.counts)
+    shapes, err = {}, 0
+    for geom in PAPER_GEOMETRIES:
+        for spec in ELEMENTS:
+            if spec is FIXED or not is_applicable(spec, geom, flash):
+                continue
+            cfg = W.make_engine(flash, geom, spec, max_active=64,
+                                device="cuda").cfg
+            dims = (cfg.n_groups, cfg.per_group, cfg.take, cfg.zone_groups)
+            if dims + (cfg.parallelism, cfg.n_zones) in shapes.values():
+                continue
+            shapes[f"{geom.describe(flash)} {spec.name}"] = dims + (
+                cfg.parallelism, cfg.n_zones)
+            b = random_lanes(torch, np, rng, L, *dims, cfg.parallelism,
+                             cfg.n_zones, "cuda")
+            err = max(err, compare_fused(torch, ops, ref, b, dims))
+            b["lanes"] = engine._lanes(cfg, engine._lane_dyn(
+                cfg, None, L, dev)).sel
+            err = max(err, compare_fused(torch, ops, ref, b, dims))
+    ops.counts.update(before)
+    return {"shapes": shapes, "max_abs_err": err}
+
+
+def phase_figures(torch, np, ops, ref, pc_ops, pc_ref, golden: dict) -> dict:
+    """Phase 17: every figure of ``tools/paper_figures.py`` at the paper's
+    sizes and ``tools/ckpt_zns.run_all`` on the card, each held to the
+    reference's outputs (``tests/data/torch_figures_paper.json``), with
+    one ``alloc_select`` and one ``grow_select`` launch per op step of a
+    non-FIXED engine (a FIXED engine's ALLOC is a plain argmin over
+    whole-zone elements) and one ``page_clock`` launch per
+    page-granular timing call
+    (counts zeroed before and read after each figure); then both fused
+    selections held to their plain versions at every custom16 shape the
+    figures launch them at (:func:`figures_fused_shapes`), held and timed
+    at Fig. 7c's two-lane table, and ``page_clock`` at Table 3's widest
+    stream."""
+    from repro_torch.core import (SUPERBLOCK, ElementKind, engine,
+                                  stack_dyn, timing, zn540)
+    from repro_torch.core import workloads as W
+    from repro_torch.tools.run_figures import DERIVED
+    check(sorted(golden) == sorted(FIGURES),
+          "phase 17: the golden file's sections are not this script's")
+    card = gpu_name_and_limit()
+    fns = figure_functions("cuda")
+    got, counts = {}, {}
+    for name in FIGURES:
+        steps = Calls(engine, "_apply_op_impl", key=lambda cfg, *_: (
+            "fixed" if cfg.kind is ElementKind.FIXED else "selecting"))
+        timed = Calls(timing, "simulate_fleet")
+        ops.reset_launches()
+        pc_ops.reset_launches()
+        torch.cuda.synchronize()
+        try:
+            out = got[name] = fns[name]()
+            torch.cuda.synchronize()
+        finally:
+            steps.close()
+            timed.close()
+        c = counts[name] = dict(ops.counts, page_clock=pc_ops.launches,
+                                page_clock_rows=dict(pc_ops.rows),
+                                op_steps=dict(steps.by),
+                                timing_calls=timed.n)
+        facts = {k: v for k, v in out.items()
+                 if k.startswith("_") and not isinstance(v, (list, dict))}
+        selecting = steps.by.get("selecting", 0)
+        check(c["alloc_select"] == c["grow_select"] == selecting
+              == out["_alloc_select"]
+              and steps.n == out["_op_steps"]
+              and c["rows"] == 0
+              and c["page_clock"] == timed.n == out["_page_clock"]
+              and pc_ops.rows["whole"] == 0,
+              f"phase 17: {name} launched {c} (run facts {facts}), want "
+              f"one alloc_select and one grow_select per op step of a "
+              f"non-FIXED engine ({steps.by}), no row selection, and "
+              f"page_clock once per page-granular timing call "
+              f"({timed.n}), a chain a channel")
+        bad = figure_mismatches(name, figure_summary(name, out),
+                                golden[name])
+        for m in bad[:40]:
+            print(f"chip_smoke: mismatch: {m}", file=sys.stderr, flush=True)
+        check(not bad, f"phase 17: {name}: {len(bad)} mismatches with "
+                       f"tests/data/torch_figures_paper.json")
+        derived = "; ".join(f"{k} {out[k]!r}" for k in DERIVED[name])
+        log(f"phase 17: {name} == tests/data/torch_figures_paper.json; "
+            f"{out['_seconds']:.3f} s, {out['_dispatches']} dispatches, "
+            f"{out['_op_steps']} op steps ({selecting} on "
+            f"selecting engines), {out['_lane_ops']} lane ops = "
+            f"{out['_lane_ops'] / out['_seconds']:.1f} lane-ops/s; "
+            f"alloc_select {c['alloc_select']}, grow_select "
+            f"{c['grow_select']}, page_clock {c['page_clock']} "
+            f"({c['timing_calls']} timing calls); {derived} ({card})")
+
+    fig7b = got["fig7b_sa_dlwa_tradeoff"]
+    log(f"phase 17: Fig. 7b recorded ops a threshold "
+        f"{fig7b['_recorded_ops']} (1M KVBench ops each); rows "
+        + "; ".join(f"thr {r['threshold']}: SA {r['sa']!r}, DLWA "
+                    f"{r['baseline_dlwa']!r} -> {r['silentzns_dlwa']!r}"
+                    for r in fig7b["rows"]))
+    wear = got["fig7c_wear"]["_wear"]
+    log(f"phase 17: Fig. 7c wear (4 x 1M ops, "
+        f"{got['fig7c_wear']['_recorded_ops']} recorded ops a device): "
+        + "; ".join(f"{k} {v}" for k, v in wear.items()))
+    log(f"phase 17: Fig. 7c leveling (400 rounds): "
+        f"{got['fig7c_wear_leveling']['_wear']}")
+    fig8 = got["fig8_geometry_sweep"]
+    sel = {(r["geometry"], r["element"]): r["dummy_pages_per_zone"]
+           for r in fig8["rows"] if r["occupancy"] == 0.0001}
+    log(f"phase 17: Fig. 8 at P8, S128, occupancy 0.0001: fixed "
+        f"{sel[('P8, S128', 'fixed')]!r} / vchunk2 "
+        f"{sel[('P8, S128', 'vchunk2')]!r} dummy pages a zone = "
+        f"{fig8['fixed_over_vchunk2_P8S128']!r} (paper 4.0)")
+    for row in got["table3_interference"]["rows"]:
+        log(f"phase 17: Table 3 {row['geometry']}: "
+            + ", ".join(f"{k} {v!r}" for k, v in row.items()
+                        if k != "geometry"))
+    t4 = got["table4_alloc_latency"]["rows"]
+    for row in t4:
+        log(f"phase 17: Table 4 {row['geometry']} median allocation us on "
+            f"the card ({card}): "
+            + ", ".join(f"{k} {v!r}" for k, v in row.items()
+                        if k != "geometry"))
+    log("phase 17: Table 4 median over geometries a element, us: "
+        + ", ".join(f"{k} {float(np.nanmedian([r[k] for r in t4]))!r}"
+                    for k in t4[0] if k != "geometry"))
+    total_s = sum(o["_seconds"] for o in got.values())
+    log(f"phase 17: {total_s:.1f} s of figures, "
+        f"{sum(o['_op_steps'] for o in got.values())} op steps, "
+        f"{sum(o['_dispatches'] for o in got.values())} dispatches")
+
+    # both fused selections at the figures' custom16 shapes, and at
+    # Fig. 7c's two-lane table (one dispatch, wear_aware off and on);
+    # page_clock at Table 3's widest stream
+    shapes = figures_fused_shapes(torch, np, ops, ref)
+    log(f"phase 17: zns_alloc alloc_select and grow_select == plain "
+        f"versions, bit for bit (max_abs_err {shapes['max_abs_err']}), at "
+        f"the {len(shapes['shapes'])} custom16 grids of Fig. 8 and Tables "
+        f"3-4's selecting engines (G, W, take, zone groups, P, zones): "
+        + "; ".join(f"{k} {v}" for k, v in shapes["shapes"].items()))
+    flash, zone = zn540()
+    eng = W.make_engine(flash, zone, SUPERBLOCK, max_active=14,
+                        device="cuda")
+    dyn = stack_dyn([eng.dyn(wear_aware=False), eng.dyn(wear_aware=True)])
+    fused = fused_timing(torch, np, ops, ref, engine, eng, dyn, seed=17)
+    for kname, t in fused.items():
+        log(f"phase 17: zns_alloc {kname} at Fig. 7c's two-lane table "
+            f"({t['rows']} row selections): kernel {t['ms']:.6f} ms a "
+            f"call, device {t['device_us']} us a launch, plain "
+            f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+    pc = figures_page_clock_timing(torch, np, pc_ops, pc_ref)
+    log(f"phase 17: page_clock at Table 3's custom16 P{FIGURE_STREAM[0]} "
+        f"x{FIGURE_STREAM[1]} FIXED contended stream (concurrency "
+        f"{pc['concurrency']}, {pc['requests']} requests; == plain on the "
+        f"first {pc['prefix']}): kernel {pc['ms']:.6f} ms a launch, device "
+        f"{pc['device_us']} us, plain {pc['plain_ms']:.3f} ms on "
+        f"{pc['plain_requests']} requests, bound {pc['bound_ms']:.6f} ms "
+        f"({pc['bound_by']}) ({card})")
+    return {"got": got, "counts": counts, "fused": fused, "page_clock": pc,
+            "seconds": total_s, "shapes_err": shapes["max_abs_err"],
+            "launches": {k: sum(c[k] for c in counts.values())
+                         for k in ("alloc_select", "grow_select",
+                                   "page_clock")}}
 
 
 # --------------------------------------------------------------------- #
@@ -5217,13 +5587,24 @@ def main() -> int:
     fleet = phase_fleet(torch, np, ops, ref, engine, fleet_golden,
                         deferred)
 
+    # 17. the paper's figures at the paper's sizes, each held to the
+    # reference's outputs (before phase 14, which reuses its Fig. 4b / 7d
+    # and Fig. 9 engine rows)
+    t0 = time.perf_counter()
+    figs = phase_figures(
+        torch, np, ops, ref, pc_ops, pc_ref,
+        json.loads((ROOT / "tests" / "data" /
+                    "torch_figures_paper.json").read_text()))
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+
     # 14. the paper's per-op benchmarks and the legacy oracles, held to
     # the reference's golden summary; page_clock vs its plain version
     t0 = time.perf_counter()
     work = phase_workloads(
         torch, np, ops, pc_ops, pc_ref,
         json.loads((ROOT / "tests" / "data" /
-                    "torch_workloads_zn540.json").read_text()), kv)
+                    "torch_workloads_zn540.json").read_text()), kv,
+        figs["got"])
     legacy_rows_t = kernel_timing(torch, np, ops, ref, 1, 4, 1056, 22)
     log(f"phase 14: zns_alloc rows at the legacy device's BLOCK shape "
         f"(1 x 4 x 1056, take 22): kernel {legacy_rows_t['ms']:.6f} ms a "
@@ -5642,7 +6023,41 @@ def main() -> int:
         "chain_ns": pc["chain_ns"],
         "chain_floor_ms": pc["chain_floor_ms"],
     }
-    entries = zns_entries + serve_entries + [pc_entry]
+    zns_entries += [{
+        "name": f"zns_alloc/{kname}",
+        "path": "the paper's figures (phase 17)",
+        "route": "cuda",
+        "source": zns,
+        "replaces": "src/repro/kernels/zns_alloc/zns_alloc.py:41",
+        "launches": figs["launches"][kname],
+        "max_abs_err": max(max_abs_err, figs["fused"][kname]["max_abs_err"],
+                           figs["shapes_err"]),
+        "ms": figs["fused"][kname]["ms"],
+        "device_us": figs["fused"][kname]["device_us"],
+        "plain_ms": figs["fused"][kname]["plain_ms"],
+        "bound_ms": figs["fused"][kname]["bound_ms"],
+        "bound_by": figs["fused"][kname]["bound_by"],
+        "library_ms": None,
+    } for kname in ("alloc_select", "grow_select")]
+    fpc = figs["page_clock"]
+    figs_pc_entry = {
+        "name": "page_clock",
+        "path": "the paper's figures (phase 17)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/page_clock/csrc/page_clock.cu",
+        "replaces": pc_entry["replaces"],
+        "launches": figs["launches"]["page_clock"],
+        "max_abs_err": fpc["max_abs_err"],
+        "ms": fpc["ms"],
+        "device_us": fpc["device_us"],
+        "requests": fpc["requests"],
+        "plain_ms": fpc["plain_ms"],
+        "plain_requests": fpc["plain_requests"],
+        "bound_ms": fpc["bound_ms"],
+        "bound_by": fpc["bound_by"],
+        "library_ms": None,
+    }
+    entries = zns_entries + serve_entries + [pc_entry, figs_pc_entry]
     for e in entries + [d for e in entries
                         for d in e.get("designs", {}).values()]:
         if e.get("device_us") is not None:
@@ -5669,5 +6084,32 @@ def phase16_alone() -> int:
     return 0
 
 
+def phase17_alone() -> int:
+    """``--phase17``: phase 17 alone on one card, its two kernels built
+    first (one ``nvcc`` each, started together)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.page_clock import ops as pc_ops
+    from repro_torch.kernels.page_clock import ref as pc_ref
+    from repro_torch.kernels.zns_alloc import ops, ref
+    log(f"torch {torch.__version__}, cuda {torch.version.cuda}; "
+        f"{gpu_name_and_limit()}")
+    with ThreadPoolExecutor(2) as pool:
+        for lib in pool.map(_build.build, (ops.SOURCE, pc_ops.SOURCE)):
+            log(f"phase 17 alone: built {lib.name}")
+    t0 = time.perf_counter()
+    phase_figures(torch, np, ops, ref, pc_ops, pc_ref, json.loads(
+        (ROOT / "tests" / "data" / "torch_figures_paper.json").read_text()))
+    log(f"phase 17 alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(phase16_alone() if sys.argv[1:] == ["--phase16"] else main())
+    alone = {"--phase16": phase16_alone, "--phase17": phase17_alone}
+    args = sys.argv[1:]
+    sys.exit(alone[args[0]]() if len(args) == 1 and args[0] in alone
+             else main())
