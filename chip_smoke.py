@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase16     # phase 16 alone, on every card
     python3 chip_smoke.py --phase17     # phase 17 alone, on one card
+    python3 chip_smoke.py --phase18     # phase 18 alone, default sizes
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``);
 run from a checkout, since it imports ``src/repro_torch``.  Phases, each
@@ -137,6 +138,21 @@ of which stops the run with a non-zero exit when it fails:
     custom16 grids of the figures' selecting engines (each engine's own
     lane table and random lanes), held and timed at Fig. 7c's two-lane
     table, and ``page_clock`` at Table 3's widest stream;
+18. (run after phase 14) the reference's CLIs and examples as port-side
+    drivers (:data:`CLI_RUNS`): ``repro_torch.tools.fleet_search``
+    (``--quick`` under each strategy, with ``--obs``, and ``--workload
+    lsm``), ``raid_zns`` (the ``--quick`` sweep, a single run with
+    parity, ``--rebuild``), ``quickstart``, ``zns_design_space`` (two
+    geometries), ``raid_array`` and ``fleet_example``, each run in this
+    process as its command line with ``--device cuda`` and held to the
+    reference scripts' outputs in ``tests/data/torch_clis_zn540.json``
+    (printed lines with the clocks masked exactly, the outputs of
+    :data:`CLI_SPIES` and the files written: counts and DLWA exactly,
+    clocks at rel 1e-5), with one ``alloc_select`` and one
+    ``grow_select`` launch per op step of a non-FIXED engine and no row
+    selection; each run's seconds, dispatches, op steps and shim
+    commands.  ``--phase18`` runs the drivers at their default sizes
+    instead (:data:`CLI_DEFAULT_RUNS`) and logs their times;
 7. hold the two attention kernels to their plain versions on CUDA
    tensors, f32 and bf16, at the three serving paths' shapes (granite's,
    the Jamba cut's: S 2048, G 8, and the llama4-scout cut's: G 5, 40
@@ -316,7 +332,10 @@ then, with the deepseek-v2 cut freed, cross-attention and the encoder:
     teacher-forced with 8g's tokens: logits and caches held to 8g's; the
     prefill again with the mLSTM forced onto its recurrent kernel, and
     again with the sLSTM forced onto its L2 kernel, their logits against
-    the plain path's beside 8g's;
+    the plain path's beside 8g's; then all three against an f32
+    reference that no bf16 rounding moves (8g's weights upcast, both
+    scans stepped in f32): the served path's last-token logits at most
+    :data:`F32_RATIO` times as far from it as the bf16 plain path's;
 10g. a second timed serve run, one profiled prefill (each scan's device
      time) and one profiled decode step (busy time, device events);
 then the profiled dispatches of phases 6, 11 and 13, set aside until
@@ -371,7 +390,11 @@ events, later small windows of the process lost their device events);
     8 decode steps on sharded caches, the logits within rel 3e-2 of the
     same run unsharded on one card, ms a decode step; 16e a kernel
     wrapper given a DTensor raises, and 16c / 16d launch no kernel (the
-    plain versions: ``qchunk`` attention, dense decode attention).
+    plain versions: ``qchunk`` attention, dense decode attention); 16f
+    Jamba-1.5-Large cut to depth 4 with its 16 experts, unplaced on card
+    0 and placed with the routes replayed: kept masks, positions, aux and
+    logits, and each layer's mixer and FFN output placed vs unplaced a
+    call (:class:`ResidualTaps`), and on four cards the full period.
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
@@ -443,6 +466,9 @@ FLIP_MIN_VALUES = 100_000
 #: in an attention output may flip a near-tied expert choice, and the
 #: check is of the kernels, not of the router
 SERVE_TOL = 5e-2
+#: 9g against the f32 reference: the served xLSTM path's error at most
+#: this many times the bf16 plain path's
+F32_RATIO = 1.5
 #: the Mamba slice: 8 prompts of 2048 tokens, 32 tokens out
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_TOKENS = 8, 2048, 32
 JAMBA_PARAMS = 8_462_049_280
@@ -2534,6 +2560,300 @@ def phase_figures(torch, np, ops, ref, pc_ops, pc_ref, golden: dict) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase 18: the reference's CLIs and examples as port-side drivers
+# --------------------------------------------------------------------- #
+#: the reference's script behind each port driver
+#: (``repro_torch.tools.<driver>``)
+CLI_SCRIPTS = {"fleet_search": "benchmarks/fleet_search.py",
+               "raid_zns": "benchmarks/raid_zns.py",
+               "quickstart": "examples/quickstart.py",
+               "zns_design_space": "examples/zns_design_space.py",
+               "raid_array": "examples/raid_array.py",
+               "fleet_example": "examples/fleet.py"}
+#: phase 18's runs at the golden file's sizes: name -> (driver, argv).
+#: ``zns_design_space``'s ``--geometries`` is the port driver's (the
+#: reference's example has no flag: the golden file swaps its geometry
+#: constant); the others are the reference's own flags
+CLI_RUNS = {
+    "fleet_search_grid_obs": ("fleet_search", ["--quick", "--obs"]),
+    "fleet_search_random": ("fleet_search", ["--quick", "--strategy",
+                                             "random"]),
+    "fleet_search_evolve": ("fleet_search", ["--quick", "--strategy",
+                                             "evolve"]),
+    "fleet_search_workload": ("fleet_search", ["--workload", "lsm",
+                                               "--quick"]),
+    "raid_zns_sweep": ("raid_zns", ["--quick"]),
+    "raid_zns_parity": ("raid_zns", ["--devices", "4", "--parity",
+                                     "--files", "12"]),
+    "raid_zns_rebuild": ("raid_zns", ["--rebuild", "--devices", "4"]),
+    "quickstart": ("quickstart", []),
+    "zns_design_space": ("zns_design_space", ["--geometries",
+                                              "P4,S32;P16,S256"]),
+    "raid_array": ("raid_array", []),
+    "fleet_example": ("fleet_example", []),
+}
+#: ``--phase18``: every driver at its defaults (the reference's), timed
+CLI_DEFAULT_RUNS = {
+    "fleet_search_grid": ("fleet_search", []),
+    "fleet_search_evolve": ("fleet_search", ["--strategy", "evolve"]),
+    "raid_zns_sweep": ("raid_zns", []),
+    "raid_zns_parity": ("raid_zns", ["--devices", "8", "--parity"]),
+    "raid_zns_rebuild": ("raid_zns", ["--rebuild", "--devices", "4"]),
+    "quickstart": ("quickstart", []),
+    "zns_design_space": ("zns_design_space", []),
+    "raid_array": ("raid_array", []),
+    "fleet_example": ("fleet_example", []),
+}
+#: the functions whose outputs a driver's summary holds, by attribute path
+#: in the driver's module (the same names in the reference's script),
+#: read off each call by wrapping them for the run
+CLI_SPIES = {
+    "fleet_search": ("score_rows",),
+    "raid_zns": ("raid_benchmark", "fleet_run", "rebuild_run"),
+    "quickstart": ("dlwa_benchmark",),
+    "zns_design_space": ("dlwa_benchmark", "interference_benchmark",
+                         "alloc_latency_benchmark"),
+    "raid_array": ("lsm_over", "timing.run_fleet_trace"),
+    "fleet_example": ("score_rows", "evolve"),
+}
+#: the files a run writes that its summary holds (in the run's directory)
+CLI_FILES = ("fleet_pareto.json", "fleet_workload_lsm.json",
+             "fleet_obs.json", "fleet_trace.json")
+#: the sidecar keys that are the run's own: the reference's compile
+#: profile and recompile table, the port's profile and launch counts
+CLI_OBS_OWN = ("profile", "jit_cache")
+#: printed numbers that are clocks or built from one, masked in the
+#: printed lines (the summary holds them at rel 1e-5), by run: (regex,
+#: replacement); a CSV row's own time column goes too
+_CSV = (r"^([a-z][^,]*),[0-9.e+-]+,", r"\1,")
+_CLOCK_KEYS = (r"(p99_latency_s|makespan_s|score|best_so_far|best_of_gen|"
+               r"best_objective)=[^;]*", r"\1=#")
+CLI_MASKS = {
+    "fleet_search": (_CSV, _CLOCK_KEYS),
+    "raid_zns_sweep": (_CSV, _CLOCK_KEYS),
+    "raid_zns_parity": ((r"^fleet_makespan_s,.*", "fleet_makespan_s,#"),),
+    "raid_zns_rebuild": ((r"^(\w*makespan_s|rebuild_interference),.*",
+                          r"\1,#"),),
+    "quickstart": (),
+    "zns_design_space": ((r"^(\s*P\d+, S\d+\s+\S+\s+\S+)\s+\S+\s+\S+$",
+                          r"\1 # #"),),
+    "raid_array": ((r"fleet makespan: [0-9.]+ ms", "fleet makespan: # ms"),
+                   (r"in one (vmapped scan|batched pass)", "in one #")),
+    "fleet_example": ((r"in [0-9.]+s", "in #s"),
+                      (r"(p99|score|best_so_far)=[0-9.]+", r"\1=#"),
+                      (r"objective [0-9.]+", "objective #")),
+}
+#: summary keys built from clocks, held at rel 1e-5 (as is every key
+#: ending in ``_s``)
+CLI_TIME_KEYS = FLEET_TIME_KEYS | {"score", "objective", "target",
+                                   "p99_over_p50", "interference"}
+
+
+def cli_masks(name: str) -> tuple:
+    """Run ``name``'s masks: its own, else its driver's."""
+    if name in CLI_MASKS:
+        return CLI_MASKS[name]
+    return CLI_MASKS.get((CLI_RUNS.get(name) or CLI_DEFAULT_RUNS[name])[0],
+                         ())
+
+
+def cli_jsonable(x):
+    """A spied output as JSON holds it: dataclasses as dicts, keys of
+    wall-clock times (``*_us``) dropped, NaN kept."""
+    import dataclasses
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        x = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {str(k): cli_jsonable(v) for k, v in x.items()
+                if not str(k).endswith("_us")}
+    if isinstance(x, (list, tuple)):
+        return [cli_jsonable(v) for v in x]
+    if hasattr(x, "item") and getattr(x, "ndim", 1) == 0:
+        return x.item()
+    return x
+
+
+def run_cli(module, argv: list, driver: str, cwd, script=None) -> dict:
+    """Run ``module.main`` with ``argv`` as its command line (passed in,
+    or with ``script`` as ``sys.argv`` for a main that reads it) in
+    directory ``cwd``, its standard output captured and the outputs of the
+    functions :data:`CLI_SPIES` names for ``driver`` recorded: ``{"lines":
+    printed lines, "spied": {name: [outputs]}, "files": {file: text},
+    "seconds": wall seconds}``."""
+    import contextlib
+    import io
+    import os
+    spied = {}
+    patches = []
+    for path in CLI_SPIES[driver]:
+        *owner, attr = path.split(".")
+        obj = module
+        for o in owner:
+            obj = getattr(obj, o)
+        inner, sink = getattr(obj, attr), spied.setdefault(path, [])
+
+        def spy(*a, _inner=inner, _sink=sink, **kw):
+            out = _inner(*a, **kw)
+            _sink.append(out)
+            return out
+        setattr(obj, attr, spy)
+        patches.append((obj, attr, inner))
+    buf, here, saved_argv = io.StringIO(), os.getcwd(), sys.argv
+    os.chdir(cwd)
+    try:
+        for f in CLI_FILES:
+            Path(f).unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if script is None:
+                module.main(argv)
+            else:
+                sys.argv = [script] + list(argv)
+                module.main()
+        secs = time.perf_counter() - t0
+        files = {f: Path(f).read_text() for f in CLI_FILES
+                 if Path(f).exists()}
+    finally:
+        os.chdir(here)
+        sys.argv = saved_argv
+        for obj, attr, inner in patches:
+            setattr(obj, attr, inner)
+    return {"lines": buf.getvalue().splitlines(), "spied": spied,
+            "files": files, "seconds": secs}
+
+
+def cli_summary(name: str, argv: list, run: dict) -> dict:
+    """A run as the golden file holds it: its command line, its printed
+    lines with the clocks masked (:data:`CLI_MASKS`), the spied outputs,
+    the files it wrote (the Perfetto trace as its event count, the
+    sidecar without :data:`CLI_OBS_OWN`, whose values are the run's own,
+    but with its keys and the names in its ``jit_cache`` under ``_keys``
+    and ``_jit_cache``)."""
+    import re
+    lines = []
+    for line in run["lines"]:
+        for pat, rep in cli_masks(name):
+            line = re.sub(pat, rep, line)
+        lines.append(line)
+    files = {}
+    for f, text in run["files"].items():
+        obj = json.loads(text)
+        if f == "fleet_trace.json":
+            obj = {"n_events": len(obj["traceEvents"])}
+        elif f == "fleet_obs.json":
+            obj = dict({k: v for k, v in obj.items()
+                        if k not in CLI_OBS_OWN},
+                       _keys=sorted(obj), _jit_cache=sorted(
+                           obj.get("jit_cache", {})))
+        files[f] = obj
+    return json.loads(json.dumps({
+        "argv": list(argv), "lines": lines,
+        "spied": cli_jsonable(run["spied"]), "files": files}))
+
+
+def cli_mismatches(name: str, got: dict, want: dict) -> list:
+    """Where a run's summary differs from the golden file's: lines
+    exactly, spied outputs and files as :func:`fleet_mismatches` holds
+    them (clocks at rel 1e-5, :data:`CLI_TIME_KEYS`), but for the names in
+    the sidecar's ``jit_cache``, which differ by design (the reference
+    counts compiled shapes a dispatch surface, the port its selection
+    kernels' launches)."""
+    got, want = (dict(x, files={
+        f: {k: v for k, v in obj.items() if k != "_jit_cache"}
+        for f, obj in x["files"].items()}) for x in (got, want))
+    bad = []
+    if got["lines"] != want["lines"]:
+        bad += [f"{name}.lines[{i}]: {g!r} != {w!r}"
+                for i, (g, w) in enumerate(zip(got["lines"],
+                                               want["lines"])) if g != w]
+        if len(got["lines"]) != len(want["lines"]):
+            bad.append(f"{name}.lines: {len(got['lines'])} lines, want "
+                       f"{len(want['lines'])}")
+    for part in ("argv", "spied", "files"):
+        bad += fleet_mismatches(got[part], want[part], f"{name}.{part}",
+                                time_keys=CLI_TIME_KEYS)
+    return bad
+
+
+def cli_modules() -> dict:
+    """The port's drivers, by driver name."""
+    import importlib
+    return {d: importlib.import_module(f"repro_torch.tools.{d}")
+            for d in CLI_SCRIPTS}
+
+
+def phase_clis(torch, ops, pc_ops, golden: "dict | None",
+               runs: dict) -> dict:
+    """Phase 18: each port driver of ``runs`` in this process on the card,
+    in ``build/cli``, as its command line with ``--device cuda``; with
+    ``golden``, every printed line, spied output and written file held to
+    it (:func:`cli_mismatches`).  Each run: exactly one ``alloc_select``
+    and one ``grow_select`` launch an op step of a non-FIXED engine (none
+    on a FIXED engine's, whose ALLOC is a plain argmin) and no row
+    selection; its seconds, dispatches (``run_programs`` calls), op steps
+    by engine kind, shim commands and ``page_clock`` launches logged."""
+    from repro_torch.core import ElementKind, engine
+    mods = cli_modules()
+    card = gpu_name_and_limit()
+    cwd = ROOT / "build" / "cli"
+    cwd.mkdir(parents=True, exist_ok=True)
+    facts = {}
+    for name, (driver, argv) in runs.items():
+        steps = Calls(engine, "_apply_op_impl", key=lambda cfg, *_: (
+            "fixed" if cfg.kind is ElementKind.FIXED else "selecting"))
+        dispatches = Calls(engine, "run_programs")
+        commands = Calls(engine, "apply_op")
+        ops.reset_launches()
+        pc_ops.reset_launches()
+        torch.cuda.synchronize()
+        try:
+            run = run_cli(mods[driver], argv + ["--device", "cuda"],
+                          driver, cwd)
+            torch.cuda.synchronize()
+        finally:
+            for c in (steps, dispatches, commands):
+                c.close()
+        c = dict(ops.counts)
+        selecting = steps.by.get("selecting", 0)
+        f = facts[name] = {
+            "seconds": run["seconds"], "dispatches": dispatches.n,
+            "op_steps": steps.n, "selecting_op_steps": selecting,
+            "shim_commands": commands.n, "launches": c,
+            "page_clock": pc_ops.launches}
+        check(c["alloc_select"] == c["grow_select"] == selecting
+              and c["rows"] == 0,
+              f"phase 18: {name} launched {c}, want one alloc_select and "
+              f"one grow_select an op step of a non-FIXED engine "
+              f"({steps.by}) and no row selection")
+        held = "not held (no golden section at this command line)"
+        if golden is not None and golden.get(name, {}).get("argv") == argv:
+            got = cli_summary(name, argv, run)
+            bad = cli_mismatches(name, got, golden[name])
+            for m in bad[:40]:
+                print(f"chip_smoke: mismatch: {m}", file=sys.stderr,
+                      flush=True)
+            check(not bad, f"phase 18: {name}: {len(bad)} mismatches with "
+                           f"tests/data/torch_clis_zn540.json")
+            held = "== tests/data/torch_clis_zn540.json"
+        log(f"phase 18: {name} (python -m repro_torch.tools.{driver} "
+            f"{' '.join(argv)}) {held}; {f['seconds']:.3f} s, "
+            f"{f['dispatches']} dispatches, {f['op_steps']} op steps "
+            f"({selecting} on selecting engines), {f['shim_commands']} "
+            f"shim commands; alloc_select {c['alloc_select']}, grow_select "
+            f"{c['grow_select']}, page_clock {f['page_clock']} ({card})")
+        for line in run["lines"][:3]:
+            log(f"phase 18: {name}: | {line}")
+    total = sum(f["seconds"] for f in facts.values())
+    log(f"phase 18: {total:.1f} s of drivers, "
+        f"{sum(f['dispatches'] for f in facts.values())} dispatches, "
+        f"{sum(f['op_steps'] for f in facts.values())} op steps, "
+        f"{sum(f['shim_commands'] for f in facts.values())} shim commands")
+    return {"facts": facts, "seconds": total,
+            "launches": {k: sum(f["launches"][k] for f in facts.values())
+                         for k in ("alloc_select", "grow_select")}}
+
+
+# --------------------------------------------------------------------- #
 # phase 7: the attention kernels vs their plain versions
 # --------------------------------------------------------------------- #
 def rel_err(torch, got, want) -> tuple:
@@ -4193,8 +4513,51 @@ def mlstm_design_logits(torch, MDL, TT, run, mops, ref_logits) -> dict:
         f"(tolerance {SERVE_TOL})")
     check(errs["recurrent"] <= SERVE_TOL, f"{cfg.name}: the recurrent-forced "
           f"prefill is {errs['recurrent']} from the plain path")
-    del caches, logits
-    return errs
+    del caches
+    return dict(errs, _logits=logits)
+
+
+def f32_reference_logits(torch, MDL, TT, run, served, recurrent,
+                         plain) -> dict:
+    """9g against a reference that no bf16 rounding moves: 8g's weights
+    upcast to f32 (exact), prefilled on the plain path (both scans stepped,
+    f32 activations).  The last-token logits' rel err of the served path
+    (``served``: the chunkwise mLSTM and cluster sLSTM kernels), of the
+    prefill with the mLSTM forced onto its recurrent kernel
+    (``recurrent``) and of the bf16 plain path (``plain``) against it;
+    the served path's must be at most :data:`F32_RATIO` times the bf16
+    plain path's."""
+    import copy
+    cfg, v = run["cfg"], run["cfg"].vocab
+    model32 = copy.deepcopy(run["model"]).float()
+    caches = TT.init_caches(cfg, run["prompts"].shape[0],
+                            run["prompts"].shape[1] + 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        f32, _ = TT.forward_prefill(model32, cfg, run["prompts"], caches,
+                                    ssm_impl="ref")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    f32 = f32[:, :v]
+    errs = {k: rel_err(torch, x[:, :v], f32)[0] for k, x in (
+        ("served", served), ("recurrent", recurrent), ("bf16_plain", plain))}
+    for k in ("served", "recurrent"):
+        errs[f"{k}_over_bf16_plain"] = errs[k] / errs["bf16_plain"]
+    log(f"phase 9g: {cfg.name} prefill logits rel err against the f32 "
+        f"reference (8g's weights in f32, both scans stepped; "
+        f"{secs:.1f} s): served path {errs['served']:.4e}, mLSTM on its "
+        f"recurrent kernel {errs['recurrent']:.4e}, bf16 plain path "
+        f"{errs['bf16_plain']:.4e}; served / plain "
+        f"{errs['served_over_bf16_plain']:.4f}, recurrent / plain "
+        f"{errs['recurrent_over_bf16_plain']:.4f} (bar {F32_RATIO}) "
+        f"[{gpu_name_and_limit()}]")
+    check(errs["served_over_bf16_plain"] <= F32_RATIO,
+          f"{cfg.name}: the served prefill is {errs['served']:.4e} from the "
+          f"f32 reference, {errs['served_over_bf16_plain']:.4f} times the "
+          f"bf16 plain path's {errs['bf16_plain']:.4e} (bar {F32_RATIO})")
+    del model32, caches
+    return dict(errs, seconds=secs)
 
 
 #: the sLSTM's step-chain floor (d, H): the cluster kernel's narrowest
@@ -4931,6 +5294,33 @@ def moe_serve(torch, SH, T, serve, cfg, model, caches, wrap,
     return out
 
 
+class ResidualTaps:
+    """While open, every residual add's operand (each layer's mixer
+    output, then its FFN's) gathered whole in call order, for 16f's
+    per-layer comparison; on placed tensors each is a collective, which
+    every rank makes in the same order."""
+
+    def __init__(self, T):
+        from repro_torch.models.shards import whole
+        self.T, self.inner, self.taps = T, T._add, []
+
+        def tapped(res, o):
+            self.taps.append(whole(o))
+            return self.inner(res, o)
+        T._add = tapped
+
+    def close(self) -> list:
+        self.T._add = self.inner
+        return self.taps
+
+
+def op_labels(T, cfg) -> list:
+    """The residual adds of one call of ``cfg``, in order: ``L<i> <mixer
+    kind>`` and ``L<i> moe`` or ``L<i> ffn``."""
+    return [f"L{i} {name}" for i, (kind, moe) in enumerate(T.layer_plan(cfg))
+            for name in (kind, "moe" if moe else "ffn")]
+
+
 def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
     """16f check: a Jamba cut with its 16 experts, unplaced on card 0
     (plain paths; every MoE layer records its routes), freed; then placed
@@ -4947,15 +5337,20 @@ def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
     n_moe = sum(moe for _, moe in T.layer_plan(cfg))
     routes = torch.empty((n_moe, sum(rows) * k), dtype=torch.int64,
                          device="cuda")
-    ref = None
+    ref, ref_taps = None, []
     t0 = time.perf_counter()
     if rank == 0:
         model = serve.build(cfg, seed=0, device="cuda")
         for ffn in moe_ffns(T, model):
             ffn.record = []
         del ffn                 # a layer's 19 GB of experts
-        logits = moe_serve(torch, SH, T, serve, cfg, model, T.init_caches(
-            cfg, n_seq, max_seq, device="cuda"), lambda t: t)
+        taps = ResidualTaps(T)
+        try:
+            logits = moe_serve(torch, SH, T, serve, cfg, model,
+                               T.init_caches(cfg, n_seq, max_seq,
+                                             device="cuda"), lambda t: t)
+        finally:
+            ref_taps = taps.close()
         recs = [f.record for f in moe_ffns(T, model)]
         routes.copy_(torch.stack([torch.cat([r.gate_idx.reshape(-1)
                                              for r in rec]) for rec in recs]))
@@ -4979,8 +5374,12 @@ def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
     caches = SH.shard_caches(cfg, T.init_caches(cfg, n_seq, max_seq,
                                                 device="cuda"), mesh, n_seq)
     dp = SH.spec(SH.fit_batch_axes(mesh, n_seq))
-    logits = moe_serve(torch, SH, T, serve, cfg, model, caches,
-                       lambda t: SH.place(t, dp, mesh))
+    taps = ResidualTaps(T)
+    try:
+        logits = moe_serve(torch, SH, T, serve, cfg, model, caches,
+                           lambda t: SH.place(t, dp, mesh))
+    finally:
+        placed_taps = taps.close()
     got = [[(whole(r.keep), whole(r.pos), float(r.aux)) for r in f.record]
            for f in moe_ffns(T, model)]
     peak = torch.cuda.max_memory_allocated()
@@ -5006,6 +5405,22 @@ def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
         out["prefill_logits"], out["decode_logits"] = errs[0], worst(
             errs[1:])
         out["finite"] = all(bool(torch.isfinite(g).all()) for g in logits)
+        # each layer's mixer and FFN output, placed vs unplaced, a call
+        labels = op_labels(T, cfg)
+        check(len(placed_taps) == len(ref_taps) == len(labels) * len(rows),
+              f"16f: {len(placed_taps)} placed and {len(ref_taps)} unplaced "
+              f"residual adds, want {len(labels)} a call x {len(rows)}")
+        op_errs = [rel_err(torch, g, r)[0]
+                   for g, r in zip(placed_taps, ref_taps)]
+        out["op_labels"] = labels
+        out["op_errs"] = [op_errs[i:i + len(labels)]
+                          for i in range(0, len(op_errs), len(labels))]
+        # the aux by MoE layer: the largest difference over the calls and
+        # the aux it was taken at
+        out["aux_by_layer"] = [max(((abs(g - a), a) for a, g in pl),
+                                   key=lambda t: t[0])
+                               for pl in out["aux_pairs"]]
+    del ref_taps, placed_taps
     return out
 
 
@@ -5299,6 +5714,15 @@ def phase_distributed(torch, base) -> None:
         f"{f['peak'] / 2**30:.3f} GiB rank 0 [{card}]")
     log(f"phase 16f: aux (unplaced, placed) by layer and call: "
         f"{f['aux_pairs']}")
+    log(f"phase 16f: aux by MoE layer (largest |placed - unplaced| over "
+        f"the calls, at aux): "
+        + "; ".join(f"MoE layer {i}: {d:.3e} at {a:.4f}"
+                    for i, (d, a) in enumerate(f["aux_by_layer"])))
+    for i, errs in enumerate(f["op_errs"]):
+        log(f"phase 16f: {'prefill' if i == 0 else f'decode call {i}'}: "
+            f"each layer's output rel err placed vs unplaced: "
+            + ", ".join(f"{lab} {e:.3e}"
+                        for lab, e in zip(f["op_labels"], errs)))
     if world == 4:
         g = r["16f"]
         log(f"phase 16f: Jamba-1.5-Large's full period (8 layers, 4 MoE "
@@ -5613,6 +6037,14 @@ def main() -> int:
         f"{legacy_rows_t['library_ms']:.6f} ms, bound "
         f"{legacy_rows_t['bound_ms']:.6f} ms ({legacy_rows_t['bound_by']})")
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # 18. the reference's CLIs and examples as port-side drivers, each
+    # held to the reference's outputs at the golden file's sizes
+    t0 = time.perf_counter()
+    phase_clis(torch, ops, pc_ops, json.loads(
+        (ROOT / "tests" / "data" / "torch_clis_zn540.json").read_text()),
+        CLI_RUNS)
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
     del kv["recs"]
 
     # 7. the attention kernels vs their plain versions; 7b. the scan
@@ -5820,6 +6252,10 @@ def main() -> int:
     mlstm_logits = mlstm_design_logits(torch, MDL, TT, run, mops,
                                        ref["prefill_logits"])
     slstm_design_logits(torch, MDL, TT, run, slops, ref["prefill_logits"])
+    # and all three against the f32 reference
+    mlstm_logits["f32_reference"] = f32_reference_logits(
+        torch, MDL, TT, run, run["logits"][0], mlstm_logits.pop("_logits"),
+        ref["prefill_logits"])
     del ref
 
     # 10g. the scans at the served shape, a second serve run, profiled
@@ -6108,8 +6544,34 @@ def phase17_alone() -> int:
     return 0
 
 
+def phase18_alone() -> int:
+    """``--phase18``: phase 18 alone on one card at the drivers' default
+    sizes (:data:`CLI_DEFAULT_RUNS`), timed, each held to the golden file
+    where it holds that command line; ``zns_alloc`` and ``page_clock``
+    built first (one ``nvcc`` each, started together)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.page_clock import ops as pc_ops
+    from repro_torch.kernels.zns_alloc import ops
+    log(f"torch {torch.__version__}, cuda {torch.version.cuda}; "
+        f"{gpu_name_and_limit()}")
+    with ThreadPoolExecutor(2) as pool:
+        for lib in pool.map(_build.build, (ops.SOURCE, pc_ops.SOURCE)):
+            log(f"phase 18 alone: built {lib.name}")
+    t0 = time.perf_counter()
+    phase_clis(torch, ops, pc_ops, json.loads(
+        (ROOT / "tests" / "data" / "torch_clis_zn540.json").read_text()),
+        CLI_DEFAULT_RUNS)
+    log(f"phase 18 alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
-    alone = {"--phase16": phase16_alone, "--phase17": phase17_alone}
+    alone = {"--phase16": phase16_alone, "--phase17": phase17_alone,
+             "--phase18": phase18_alone}
     args = sys.argv[1:]
     sys.exit(alone[args[0]]() if len(args) == 1 and args[0] in alone
              else main())

@@ -13,7 +13,10 @@ fixed-length memory (the port of ``repro.models.attention``).
 * Projections stay ``x @ W`` with ``(d_in, d_out)`` weights, and q/k are
   roped in the ``(B, S, H, D)`` layout of the projection; the kernel
   reads the ``(B, H, S, D)`` views through their strides, so neither side
-  is copied into another layout.
+  is copied into another layout.  The output projection ``wo`` goes
+  through ``shards.row_parallel``: ``o @ wo`` on a plain tensor, and on
+  placed heads each rank's f32 partial product summed before one
+  rounding.
 * Cross-attention (VLM image layers, the enc-dec decoder) has no rope and
   no mask: prefill is non-causal flash attention over the memory's
   ``Sk = M`` rows, decode is decode attention with every length ``M``
@@ -125,7 +128,8 @@ def attn_forward(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
         k = L.apply_rope(k, pos[..., None], rope_theta)
     o = _attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=causal, impl=impl)
-    return o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return shards.row_parallel(
+        o.transpose(1, 2).reshape(b, s, n_heads * head_dim), p["wo"])
 
 
 def attn_prefill(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
@@ -143,7 +147,8 @@ def attn_prefill(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
                 causal=True, impl=impl)
     shards.write_prefix(cache["k"], kr)
     shards.write_prefix(cache["v"], v)
-    out = o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    out = shards.row_parallel(
+        o.transpose(1, 2).reshape(b, s, n_heads * head_dim), p["wo"])
     return out, cache
 
 
@@ -159,7 +164,8 @@ def attn_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     k = L.apply_rope(k[:, :, None, :], pos_b, rope_theta)[:, :, 0]
     cache = cache_append(cache, k, v, pos)
     o = _decode(q, cache["k"], cache["v"], pos + 1, impl=impl)
-    return o.reshape(b, n_heads * head_dim) @ p["wo"], cache
+    return shards.row_parallel(o.reshape(b, n_heads * head_dim),
+                               p["wo"]), cache
 
 
 # --------------------------------------------------------------------- #
@@ -194,7 +200,8 @@ def _cross_attend(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], *,
     q = shards.heads(x @ p["wq"], n_heads, head_dim, kv["k"].shape[2])
     o = _attend(q.transpose(1, 2), kv["k"].transpose(1, 2),
                 kv["v"].transpose(1, 2), causal=False, impl=impl)
-    return o.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return shards.row_parallel(
+        o.transpose(1, 2).reshape(b, s, n_heads * head_dim), p["wo"])
 
 
 def cross_forward(p, x: torch.Tensor, memory: torch.Tensor, *,
@@ -240,4 +247,4 @@ def cross_decode(p, x: torch.Tensor, memory_kv: Dict[str, torch.Tensor], *,
         lengths = torch.full((b,), memory_kv["k"].shape[1],
                              dtype=torch.int32, device=x.device)
     o = _decode(q, memory_kv["k"], memory_kv["v"], lengths, impl=impl)
-    return o.reshape(b, n_heads * head_dim) @ p["wo"]
+    return shards.row_parallel(o.reshape(b, n_heads * head_dim), p["wo"])

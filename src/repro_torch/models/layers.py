@@ -117,7 +117,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu(x: torch.Tensor, p) -> torch.Tensor:
     h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    return shards.row_parallel(h, p["w_down"])
 
 
 def gelu_mlp_init(generator, d: int, d_ff: int, *, device,
@@ -139,7 +139,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
-    return gelu(x @ p["w_in"]) @ p["w_out"]
+    return shards.row_parallel(gelu(x @ p["w_in"]), p["w_out"])
 
 
 # --------------------------------------------------------------------- #

@@ -19,14 +19,24 @@ bar is 5e-2; and, as a control, with the mLSTM on the stepped plain
 version itself (only the sLSTM kernel differs from the plain path).
 ``--seeds`` repeats that prefill for each prompt seed listed (the first
 one, 9g's 0 by default, on every scan; the others on the two kernels,
-the plain chunkwise version in f32 and the control).  The last line is
-the whole result as JSON.  ~1 minute, and ~30 s a further seed; needs a
-CUDA device and ``nvcc``.
+the plain chunkwise version in f32 and the control).
+
+Each seed also prefills an f32 reference that no bf16 rounding moves:
+the same weights upcast to f32 (exact) on the plain path, both scans
+stepped in f32 (``ssm_impl="ref"``).  Against it the tool prints the
+last-token logits' rel err of the served path (the chunkwise mLSTM
+kernel), of the mLSTM on its recurrent kernel and of the bf16 plain
+path, and each kernel design's error over the bf16 plain path's:
+``chip_smoke.py`` phase 9g's check holds the served path's ratio to
+:data:`F32_RATIO` on seed 0.  The last line is the whole result as JSON.
+~1.5 minutes, and ~45 s a further seed; needs a CUDA device and
+``nvcc``.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -36,6 +46,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 BATCH, PROMPT, HEADS, P = 8, 2048, 4, 384
 OPERANDS = ("f32", "bf16", "bf16x2", "bf16x3")
+#: phase 9g's bar: the served path's error against the f32 reference over
+#: the bf16 plain path's
+F32_RATIO = 1.5
+#: the prefills held to the f32 reference, by the name the tool gives
+#: them: the served path, the mLSTM on its recurrent kernel, both scans
+#: stepped in bf16
+AGAINST_F32 = {"served": "chunkwise kernel",
+               "recurrent": "recurrent kernel",
+               "bf16_plain": "bf16 plain path"}
 
 
 def rel_err(a, b) -> float:
@@ -87,7 +106,7 @@ def main() -> int:
         scans[f"plain chunkwise, {operands}"] = (
             lambda *a, o=operands: mref.mlstm_chunkwise_ref(*a, operands=o))
     out = {"device": card, "kernel_operands": mref.KERNEL_OPERANDS,
-           "scan": {}, "prefill_logits_rel_err": {}}
+           "scan": {}, "prefill_logits_rel_err": {}, "f32_reference": {}}
     args = scan_inputs(torch)
     want = mops.mlstm_scan(*args, impl="ref")
     for name, fn in scans.items():
@@ -101,11 +120,12 @@ def main() -> int:
     del args, want, got
 
     model = serve.build(cfg, seed=0, device="cuda")
+    model32 = copy.deepcopy(model).float()      # the same weights, exact
 
-    def prefill(ssm_impl: str):
+    def prefill(ssm_impl: str, m=model):
         caches = TT.init_caches(cfg, BATCH, PROMPT + 1, device="cuda")
         with torch.inference_mode():
-            logits, _ = TT.forward_prefill(model, cfg, prompts, caches,
+            logits, _ = TT.forward_prefill(m, cfg, prompts, caches,
                                            ssm_impl=ssm_impl)
         torch.cuda.synchronize()
         return logits[:, :cfg.vocab]
@@ -115,6 +135,7 @@ def main() -> int:
         prompts = torch.from_numpy(serve.make_prompts(
             cfg, BATCH, PROMPT, seed=seed)).to("cuda")
         plain = prefill("ref")
+        logits = {"bf16 plain path": plain}
         errs = out["prefill_logits_rel_err"][seed] = {}
         names = list(scans) if seed == seeds[0] else [
             "recurrent kernel", "chunkwise kernel",
@@ -125,11 +146,25 @@ def main() -> int:
                     return (stepped(q, k, v, li, lf, impl="ref")
                             if impl == "ref" else fn(q, k, v, li, lf))
                 mops.mlstm_scan = scan
-                errs[name] = err = rel_err(prefill("kernel"), plain)
+                logits[name] = prefill("kernel")
+                errs[name] = err = rel_err(logits[name], plain)
                 print(f"prompt seed {seed}: prefill logits, mLSTM on the "
                       f"{name}: rel err {err:.4e}", flush=True)
         finally:
             mops.mlstm_scan = stepped
+        f32 = prefill("ref", model32)
+        row = out["f32_reference"][seed] = {
+            k: rel_err(logits[name], f32) for k, name in AGAINST_F32.items()}
+        for k in ("served", "recurrent"):
+            row[f"{k}_over_bf16_plain"] = row[k] / row["bf16_plain"]
+            row[f"{k}_meets"] = row[f"{k}_over_bf16_plain"] <= F32_RATIO
+        print(f"prompt seed {seed}: against the f32 reference: served "
+              f"{row['served']:.4e}, recurrent {row['recurrent']:.4e}, "
+              f"bf16 plain {row['bf16_plain']:.4e}; served / plain "
+              f"{row['served_over_bf16_plain']:.4f}, recurrent / plain "
+              f"{row['recurrent_over_bf16_plain']:.4f} (bar {F32_RATIO})",
+              flush=True)
+        del logits, f32
     print(card)
     print(json.dumps(out))
     return 0

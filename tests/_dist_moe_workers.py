@@ -223,3 +223,72 @@ def four_ranks(rank, world, layer_cases, train_cases, jamba_tree, prompt):
            "stacked": stacked_step(train_cases["jamba"][3], mesh),
            "row_parallel": row_parallel_bf16(mesh)}
     return out if rank == 0 else None
+
+
+def placed_row_products(rank, world, cfg_name, seed, prompt):
+    """A reduced ``cfg_name`` in bf16 placed on (data 2, model 2) by the
+    production rules, prefilled on ``prompt`` and stepped once, with every
+    ``shards.row_parallel`` call recorded.  For each call whose ``a`` is
+    split along its last dim, this rank's output rows against the same
+    rows computed here from the gathered operands: each ``model`` rank's
+    half of the contraction as one f32 product, the two summed in f32 and
+    rounded to bf16 once.  Returns, a call, the weight's name, the split,
+    whether the rows are equal bit for bit, and the share of them that
+    bf16 partials (each rounded, then summed in bf16) would change."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = M.make_test_mesh(2, 2, device_type="cpu")
+    cfg = get_arch(cfg_name).reduced()
+    model = serve.build(cfg, seed=seed, device="cpu")
+    names = {id(p): n for n, p in model.named_parameters()}
+    SH.shard_model(model, mesh)
+    names.update({id(p): n for n, p in model.named_parameters()})
+    calls, inner = [], shards.row_parallel
+
+    def recorded(a, w, groups=()):
+        out = inner(a, w, groups)
+        calls.append((a, w, out))
+        return out
+    b, s = prompt.shape
+    caches = SH.shard_caches(cfg, T.init_caches(cfg, b, s + 1,
+                                                device="cpu"), mesh, b)
+
+    def wrap(t):
+        return SH.place(t, SH.spec(SH.fit_batch_axes(mesh, b)), mesh)
+    shards.row_parallel = recorded
+    try:
+        with torch.no_grad(), SH.implicit_replication():
+            T.forward_prefill(model, cfg, wrap(torch.as_tensor(prompt)),
+                              caches, attn_impl="ref", ssm_impl="ref")
+            T.forward_decode(model, cfg, wrap(torch.full((b,), 1,
+                                                         dtype=torch.int32)),
+                             caches, wrap(torch.full((b,), s,
+                                                     dtype=torch.int32)),
+                             attn_impl="ref")
+    finally:
+        shards.row_parallel = inner
+    out = []
+    m = mesh.get_local_rank(1)
+    for a, w, y in calls:
+        last = a.dim() - 1
+        split = [i for i, p in enumerate(a.placements)
+                 if p.is_shard() and p.dim in (-1, last)]
+        rows = [Replicate() if i in split else p
+                for i, p in enumerate(a.placements)]
+        a_rows = a.redistribute(mesh, rows).to_local()
+        y_rows = y.redistribute(mesh, rows).to_local()
+        w_all = shards.whole(w)
+        k = a_rows.shape[-1] // 2
+        halves = [a_rows[..., i * k:(i + 1) * k].float()
+                  @ w_all[i * k:(i + 1) * k].float() for i in (0, 1)]
+        want = (halves[0] + halves[1]).to(torch.bfloat16)
+        bf16 = (halves[0].to(torch.bfloat16)
+                + halves[1].to(torch.bfloat16))
+        out.append({"weight": names.get(id(w), "?"),
+                    "split": [mesh.mesh_dim_names[i] for i in split],
+                    "model_rank": m,
+                    "equal": bool(torch.equal(y_rows, want)),
+                    "dtype": str(y_rows.dtype),
+                    "bf16_partials_differ": float(
+                        (bf16 != want).float().mean())})
+    return out
