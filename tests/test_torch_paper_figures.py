@@ -63,6 +63,9 @@ from repro_torch.tools import run_figures as TRUN  # noqa: E402
 
 GOLDEN = (pathlib.Path(__file__).with_name("data")
           / "torch_figures_paper.json")
+#: the whole script's cut figures (``chip_smoke.FIGURE_CUTS``) through
+#: the reference
+CUT_GOLDEN = GOLDEN.with_name("torch_figures_cut.json")
 TOOLS = ROOT / "src" / "repro_torch" / "tools"
 #: the port's new drivers (the other ``tools/`` scripts are measurement
 #: helpers of earlier slices)
@@ -153,6 +156,18 @@ def figures_golden() -> dict:
     """Every section of the golden file, through the reference at the
     paper's sizes."""
     return {name: reference_figure(name) for name in CS.FIGURES}
+
+
+def figures_cut_golden() -> dict:
+    """The figures ``chip_smoke.FIGURE_CUTS`` cuts by keyword, through
+    the reference at those keywords, and the cuts themselves
+    (``params``); a cut of geometries is held to :data:`GOLDEN`'s cells
+    and needs no entry."""
+    out = {"params": json.loads(json.dumps(CS.FIGURE_CUTS))}
+    for name, kw in CS.FIGURE_CUTS.items():
+        if "geometries" not in kw:
+            out[name] = reference_figure(name, **kw)
+    return out
 
 
 def assert_same(name: str, got: dict, want: dict) -> None:
@@ -498,8 +513,41 @@ def test_drivers_import_neither_jax_nor_the_reference():
                    cwd=str(ROOT), timeout=120)
 
 
+# --------------------------------------------------------------------- #
+# the whole script's cuts of phase 17
+# --------------------------------------------------------------------- #
+def test_cut_golden_file_is_current():
+    """The cut figures' file holds this script's cuts, and regenerating
+    it through the reference on the CPU gives the committed file."""
+    want = json.loads(CUT_GOLDEN.read_text())
+    assert want["params"] == json.loads(json.dumps(CS.FIGURE_CUTS))
+    got = figures_cut_golden()
+    assert sorted(got) == sorted(want)
+    for name in CS.FIGURE_CUTS:
+        if name in want:
+            assert_same(name, got[name], want[name])
+
+
+@pytest.mark.parametrize("name", sorted(CS.FIGURE_CUTS))
+def test_whole_script_cut_port_equals_golden(golden, name):
+    """Each figure as phase 17 cuts it in the whole script
+    (``chip_smoke.cut_figure``), through the port on the CPU, equals the
+    summary the card's run is held to."""
+    fn, want = CS.cut_figure(name, CS.figure_functions("cpu")[name],
+                             golden[name], CS.FIGURE_CUTS,
+                             json.loads(CUT_GOLDEN.read_text()))
+    got = fn()
+    assert_same(name, CS.figure_summary(name, got), want)
+    if name == "table4_alloc_latency":
+        assert [r["geometry"] for r in want["n_allocs"]] == [
+            "P16, S256", "P4, S32"]
+
+
 if __name__ == "__main__":
     GOLDEN.parent.mkdir(exist_ok=True)
     GOLDEN.write_text(json.dumps(figures_golden(), indent=1,
                                  sort_keys=True) + "\n")
     print(f"wrote {GOLDEN}", file=sys.stderr)
+    CUT_GOLDEN.write_text(json.dumps(figures_cut_golden(), indent=1,
+                                     sort_keys=True) + "\n")
+    print(f"wrote {CUT_GOLDEN}", file=sys.stderr)

@@ -11,7 +11,7 @@ multiply-add the port rounds twice).  The pre-dispatch row checks and
 ``assert_all_ok`` raise the reference's messages.
 
 :func:`kv_zn540_golden` builds the card's KV storage dispatch -- six
-zn540 lanes, one drive-write of LSM traffic -- with the reference and
+zn540 lanes, 0.28 of a drive-write of LSM traffic -- with the reference and
 summarises it; ``python tests/test_torch_trace_compile.py`` writes that
 summary to ``tests/data/torch_kv_zn540.json``, which ``chip_smoke.py``
 holds the port's dispatch on the card to.
@@ -48,9 +48,10 @@ from repro_torch.fleet import runner as TR
 GOLDEN = pathlib.Path(__file__).with_name("data") / "torch_kv_zn540.json"
 #: the card's KV storage dispatch: the zn540 window and the workloads'
 #: parameters -- those of tools/bench.py's _trace_recorders (full mode),
-#: with the LSM raised from 10 flushes to 250 (one drive-write)
+#: with the LSM raised from 10 flushes to 70 (0.28 of a drive-write, the
+#: LSM lane as long as the cache lane: 2,048 op steps)
 KV = {"n_zones": 48, "max_active": 14, "n_tenants": 3, "pad_quantum": 64,
-      "lsm": {"seed": 0, "n_flushes": 250},
+      "lsm": {"seed": 0, "n_flushes": 70},
       "ckpt": {"n_steps": 24, "shards": 3, "seed": 0},
       "cache": {"n_accesses": 2000, "n_keys": 64, "seed": 0,
                 "capacity_zones": 6, "obj_pages": 4}}
@@ -198,8 +199,8 @@ def test_kv_zn540_golden_file_is_current():
     at rel 1e-5 (the committed file may come from another CPU)."""
     want = json.loads(GOLDEN.read_text())
     got = json.loads(json.dumps(kv_zn540_golden()))
-    assert got["op_steps"] == want["op_steps"] == 7296
-    assert [lane["n_ops"] for lane in want["lanes"]][0] == 7291
+    assert got["op_steps"] == want["op_steps"] == 2048
+    assert [lane["n_ops"] for lane in want["lanes"]][0] == 2021
     assert_same_floats(got, want, "golden")
 
 
