@@ -398,7 +398,10 @@ events, later small windows of the process lost their device events);
     Jamba-1.5-Large cut to depth 4 with its 16 experts, unplaced on card
     0 and placed with the routes replayed: kept masks, positions, aux and
     logits, and each layer's mixer and FFN output placed vs unplaced a
-    call (:class:`ResidualTaps`), and on four cards the full period.
+    call (:class:`ResidualTaps`), and on four cards the full period;
+    under ``--phase16`` also the first Mamba mixer product by product
+    (:class:`MambaTaps`) and its matmuls at four cards' shards on card 0
+    (:func:`mamba_product_split`).
 
 The last three lines are the card's name and power limit (from
 ``nvidia-smi``), a JSON line with every kernel's numbers -- one entry
@@ -5393,6 +5396,139 @@ class ResidualTaps:
         return self.taps
 
 
+class MambaTaps:
+    """While open, the first Mamba mixer of every call (prefill, then each
+    decode call) tapped product by product, each gathered whole: the
+    column-parallel ``in_proj`` (its input too), the conv (after its
+    SiLU), the row-parallel ``x_proj``, ``dt_proj``, the scan (before
+    the gate), the gate and the row-parallel ``out_proj``; and that
+    mixer's weights where ``weights``.  Only 16f under ``--phase16``
+    opens it.  The port's code runs as it is: module functions are
+    wrapped to note their results, and a scan's local output is placed as
+    its region places the gate's."""
+
+    def __init__(self, M, shards, ssm_ops, weights=False):
+        from torch.distributed.tensor import DTensor
+        self.mods = [(M, n, getattr(M, n)) for n in (
+            "mamba_forward", "mamba_decode", "_parts", "_dt_b_c")] + [
+            (shards, "row_parallel", shards.row_parallel)] + [
+            (ssm_ops, n, getattr(ssm_ops, n))
+            for n in ("ssm_scan", "single_step")]
+        orig = {n: f for _, n, f in self.mods}
+        self.calls, self.first, self.cur, self.stash = [], None, None, None
+
+        def note(name, t):
+            if self.cur is not None:
+                self.cur[name] = shards.whole(t)
+
+        def mixer(name):
+            def call(p, *args, **kwargs):
+                if self.first is None:
+                    self.first = p
+                    self.weights = {k: shards.whole(p[k]) for k in (
+                        "in_proj", "x_proj", "dt_proj", "out_proj")
+                        if weights}
+                if p is not self.first:
+                    return orig[name](p, *args, **kwargs)
+                self.cur = {}
+                try:
+                    return orig[name](p, *args, **kwargs)
+                finally:
+                    self.calls.append(self.cur)
+                    self.cur = None
+            return call
+
+        def region_of(region):
+            def call(fn, args, dims, out_dims, in_place=()):
+                out = region(fn, args, dims, out_dims, in_place)
+                first = out[0] if isinstance(out, tuple) else out
+                if self.cur is not None and self.stash is not None:
+                    y, self.stash = self.stash, None
+                    if isinstance(first, DTensor):
+                        y = DTensor.from_local(y, region.mesh,
+                                               region.placements(out_dims),
+                                               run_check=False)
+                    note("scan", y)
+                    note("gate", first)
+                elif self.cur is not None:
+                    note("conv", first)
+                return out
+            return call
+
+        def parts(p, x, state=None):
+            region, xz, d_inner = orig["_parts"](p, x, state)
+            note("in_proj_input", x)
+            note("in_proj", xz)
+            return region_of(region), xz, d_inner
+
+        def dt_b_c(p, xc, state):
+            dt_lin, b, c = orig["_dt_b_c"](p, xc, state)
+            note("dt_proj", dt_lin)
+            return dt_lin, b, c
+
+        def row_parallel(a, w, groups=()):
+            y = orig["row_parallel"](a, w, groups)
+            if self.cur is not None:
+                note("out_proj" if "x_proj" in self.cur else "x_proj", y)
+            return y
+
+        def scan_out(name, pick):
+            def call(*args, **kwargs):
+                out = orig[name](*args, **kwargs)
+                if self.cur is not None:
+                    self.stash = pick(out)
+                return out
+            return call
+        wrapped = {"mamba_forward": mixer("mamba_forward"),
+                   "mamba_decode": mixer("mamba_decode"), "_parts": parts,
+                   "_dt_b_c": dt_b_c, "row_parallel": row_parallel,
+                   "ssm_scan": scan_out("ssm_scan", lambda y: y),
+                   "single_step": scan_out("single_step", lambda o: o[1])}
+        for mod, n, _ in self.mods:
+            setattr(mod, n, wrapped[n])
+
+    def close(self) -> list:
+        for mod, n, f in self.mods:
+            setattr(mod, n, f)
+        return self.calls
+
+
+#: the first Mamba mixer's products, in order
+MAMBA_PRODUCTS = ("in_proj", "conv", "x_proj", "dt_proj", "scan", "gate",
+                  "out_proj")
+
+
+def mamba_product_split(torch, call: dict, w: dict, mesh: dict) -> dict:
+    """The first Mamba mixer's four matmuls recomputed on card 0 from the
+    unplaced run's inputs, at the shards ``mesh`` (data, model) gives each
+    rank -- rows over ``data``; ``in_proj`` / ``dt_proj`` columns and
+    ``x_proj`` / ``out_proj`` rows over ``model``, those partials summed
+    in f32 and rounded once as ``shards.row_parallel`` sums them on
+    DTensors -- against the unplaced products: {product: (share of
+    elements that differ, rel err)}."""
+    nd, nm = mesh["data"], mesh["model"]
+    dt_rank = w["dt_proj"].shape[0]
+    ins = {"in_proj": call["in_proj_input"], "x_proj": call["conv"],
+           "dt_proj": call["x_proj"][..., :dt_rank], "out_proj": call["gate"]}
+    out = {}
+    for name, a in ins.items():
+        wt = w[name]
+        rows = a.chunk(nd, dim=0)
+        if name in ("in_proj", "dt_proj"):
+            got = torch.cat([torch.cat([r @ c for c in wt.chunk(nm, dim=1)],
+                                       dim=-1) for r in rows])
+        else:
+            k = a.shape[-1] // nm
+            got = torch.cat([sum(r[..., i * k:(i + 1) * k].float()
+                                 @ wt[i * k:(i + 1) * k].float()
+                                 for i in range(nm)).to(a.dtype)
+                             for r in rows])
+        want = a @ wt
+        out[name] = (float((got != want).float().mean()),
+                     rel_err(torch, got, want)[0])
+    return out
+
+
 def op_labels(T, cfg) -> list:
     """The residual adds of one call of ``cfg``, in order: ``L<i> <mixer
     kind>`` and ``L<i> moe`` or ``L<i> ffn``."""
@@ -5400,13 +5536,23 @@ def op_labels(T, cfg) -> list:
             for name in (kind, "moe" if moe else "ffn")]
 
 
-def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
+def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world,
+                   products=False) -> dict:
     """16f check: a Jamba cut with its 16 experts, unplaced on card 0
     (plain paths; every MoE layer records its routes), freed; then placed
     on every card by the production rules from the same seed, replaying
     those routes: each MoE call's kept mask and positions, its aux loss,
-    and every call's logits against card 0's."""
+    and every call's logits against card 0's.  ``products``
+    (``--phase16``): the first Mamba mixer of each call product by
+    product too (:class:`MambaTaps`), and its matmuls at four cards'
+    shards on card 0 (:func:`mamba_product_split`)."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import shards as SHD
     from repro_torch.models.shards import whole
+
+    def mamba_taps(weights=False):
+        return MambaTaps(MB, SHD, ssm_ops, weights) if products else None
     n_seq, prompt_len, steps = DIST_MOE
     mesh = M.make_mesh(dist_mesh(world))
     rank = dist.get_rank()
@@ -5416,20 +5562,26 @@ def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
     n_moe = sum(moe for _, moe in T.layer_plan(cfg))
     routes = torch.empty((n_moe, sum(rows) * k), dtype=torch.int64,
                          device="cuda")
-    ref, ref_taps = None, []
+    ref, ref_taps, ref_products, split = None, [], [], []
     t0 = time.perf_counter()
     if rank == 0:
         model = serve.build(cfg, seed=0, device="cuda")
         for ffn in moe_ffns(T, model):
             ffn.record = []
         del ffn                 # a layer's 19 GB of experts
-        taps = ResidualTaps(T)
+        taps, mtaps = ResidualTaps(T), mamba_taps(weights=True)
         try:
             logits = moe_serve(torch, SH, T, serve, cfg, model,
                                T.init_caches(cfg, n_seq, max_seq,
                                              device="cuda"), lambda t: t)
         finally:
             ref_taps = taps.close()
+            ref_products = mtaps.close() if mtaps else []
+        split = [mamba_product_split(torch, c, mtaps.weights,
+                                     {"data": 2, "model": 2})
+                 for c in ref_products[:2]]
+        if mtaps:
+            del mtaps.weights
         recs = [f.record for f in moe_ffns(T, model)]
         routes.copy_(torch.stack([torch.cat([r.gate_idx.reshape(-1)
                                              for r in rec]) for rec in recs]))
@@ -5453,12 +5605,13 @@ def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
     caches = SH.shard_caches(cfg, T.init_caches(cfg, n_seq, max_seq,
                                                 device="cuda"), mesh, n_seq)
     dp = SH.spec(SH.fit_batch_axes(mesh, n_seq))
-    taps = ResidualTaps(T)
+    taps, mtaps = ResidualTaps(T), mamba_taps()
     try:
         logits = moe_serve(torch, SH, T, serve, cfg, model, caches,
                            lambda t: SH.place(t, dp, mesh))
     finally:
         placed_taps = taps.close()
+        placed_products = mtaps.close() if mtaps else []
     got = [[(whole(r.keep), whole(r.pos), float(r.aux)) for r in f.record]
            for f in moe_ffns(T, model)]
     peak = torch.cuda.max_memory_allocated()
@@ -5499,6 +5652,16 @@ def dist_moe_check(torch, dist, SH, M, T, serve, cfg, world) -> dict:
         out["aux_by_layer"] = [max(((abs(g - a), a) for a, g in pl),
                                    key=lambda t: t[0])
                                for pl in out["aux_pairs"]]
+        if products:
+            check(len(placed_products) == len(ref_products) == len(rows),
+                  f"16f: {len(placed_products)} placed and "
+                  f"{len(ref_products)} unplaced first Mamba mixers, want "
+                  f"{len(rows)}")
+            out["mamba_products"] = [
+                {k: rel_err(torch, g[k], r[k])[0]
+                 for k in ("in_proj_input",) + MAMBA_PRODUCTS}
+                for g, r in zip(placed_products, ref_products)]
+            out["mamba_split"] = split
     del ref_taps, placed_taps
     return out
 
@@ -5607,8 +5770,11 @@ def dist_kernel_refusal(torch, SH, M, fops, world: int) -> str:
     fail("phase 16e: flash attention took a DTensor")
 
 
-def phase16_rank(rank: int, world: int, base_loss, ckpt_dir: str) -> dict:
-    """One rank of phase 16 (a spawned process on card ``rank``)."""
+def phase16_rank(rank: int, world: int, base_loss, ckpt_dir: str,
+                 products: bool = False) -> dict:
+    """One rank of phase 16 (a spawned process on card ``rank``);
+    ``products``: 16f's first Mamba mixer product by product
+    (``--phase16``)."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5663,7 +5829,7 @@ def phase16_rank(rank: int, world: int, base_loss, ckpt_dir: str) -> dict:
     from repro_torch.configs.jamba15_large_398b import DEPTH4, PERIOD
     from repro_torch.models import moe as MOE
     timed("16f_check", lambda: dist_moe_check(torch, dist, SH, M, T, serve,
-                                              DEPTH4, world))
+                                              DEPTH4, world, products))
     gc.collect()
     torch.cuda.empty_cache()
     if world == 4:
@@ -5678,10 +5844,11 @@ def phase16_rank(rank: int, world: int, base_loss, ckpt_dir: str) -> dict:
     return out
 
 
-def phase_distributed(torch, base) -> None:
+def phase_distributed(torch, base, products: bool = False) -> None:
     """16: spawn one process a card and check what they return.  ``base``:
     the unsharded loss of 16c's first batch where it is known (15b's first
-    loss, on one card), else None and rank 0 computes it."""
+    loss, on one card), else None and rank 0 computes it.  ``products``
+    (``--phase16``): 16f's first Mamba mixer product by product."""
     import shutil
     from repro_torch.launch import mesh as M
     world = min(4, torch.cuda.device_count())
@@ -5692,7 +5859,7 @@ def phase_distributed(torch, base) -> None:
     t0 = time.perf_counter()
     try:
         res = M.run_ranks(phase16_rank, world, base,
-                          str(work / "ckpt"), backend="nccl",
+                          str(work / "ckpt"), products, backend="nccl",
                           work_dir=str(work), timeout_s=900)
     except (RuntimeError, TimeoutError) as e:
         fail(f"phase 16: {e}")
@@ -5802,6 +5969,16 @@ def phase_distributed(torch, base) -> None:
             f"each layer's output rel err placed vs unplaced: "
             + ", ".join(f"{lab} {e:.3e}"
                         for lab, e in zip(f["op_labels"], errs)))
+    for i, errs in enumerate(f.get("mamba_products", [])):
+        log(f"phase 16f: {'prefill' if i == 0 else f'decode call {i}'}: "
+            f"the first Mamba mixer's products rel err placed vs unplaced: "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    for i, split in enumerate(f.get("mamba_split", [])):
+        log(f"phase 16f: {'prefill' if i == 0 else 'decode call 1'}: the "
+            f"first Mamba mixer's matmuls at (data, model) = (2, 2)'s shards "
+            f"on card 0 vs unplaced (share of elements that differ, rel "
+            f"err): " + ", ".join(f"{k} {d:.3e} {e:.3e}"
+                                  for k, (d, e) in split.items()))
     if world == 4:
         g = r["16f"]
         log(f"phase 16f: Jamba-1.5-Large's full period (8 layers, 4 MoE "
@@ -6620,7 +6797,7 @@ def phase16_alone() -> int:
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}; "
         f"{gpu_name_and_limit()} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    phase_distributed(torch, None)
+    phase_distributed(torch, None, products=True)
     log(f"phase 16 alone: {time.perf_counter() - t0:.1f} s")
     return 0
 

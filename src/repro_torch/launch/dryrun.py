@@ -15,8 +15,10 @@ per-rank bytes of the placed leaves (``memory.argument_bytes``), the
 collectives of one microbatch scaled by ``n_micro`` (``collectives`` /
 ``collective_counts``, ``collective_scale``; the reference's compiler
 counts a loop body once and its roofline is analytic for the same
-reason), and the analytic roofline on H100 constants
-(``analysis.flops`` / ``analysis.roofline``).
+reason, and on ``meta`` the recurrences' plain loops run their body once,
+``models.layers.scan_once_on_meta``), and the analytic roofline on H100
+constants (``analysis.flops`` / ``analysis.roofline``,
+:func:`roofline_terms`).
 
 The reference's ``lower_s`` / ``compile_s`` and XLA's ``cost_analysis``
 have no counterpart: ``step_s`` is the meta step's seconds in their
@@ -146,6 +148,40 @@ def build_lowerable(cfg, cell, mesh, *, attn_impl="ref", ssm_impl="ref",
     raise ValueError(cell.kind)
 
 
+def roofline_terms(cfg, cell, shp, n_dev: int, n_micro: int,
+                   recorded_coll_bytes: float) -> dict:
+    """A cell's ``roofline``, ``analytic`` and ``analytic_detail``: the
+    analytic terms (as the reference's) on the mesh ``shp`` (``{axis:
+    size}``) of ``n_dev`` ranks, with the recorded collective bytes as a
+    floor on the collective term (``tools/recompute_roofline`` re-derives
+    a JSON's through this)."""
+    dp = 1
+    for ax in SH.fit_batch_axes(shp, cell.global_batch,
+                                SH.batch_includes_model(cfg)):
+        dp *= shp[ax]
+    dp = max(1, dp)
+    tp = shp["model"] if not SH.batch_includes_model(cfg) else 1
+    cost_a = FL.cell_cost(cfg, cell, n_dev, dp=dp, tp=tp, n_micro=n_micro,
+                          fsdp=SH._needs_fsdp(cfg), append_impl="scatter",
+                          param_dp=shp["data"])
+    rl = roof.Roofline(flops=cost_a.flops, hbm_bytes=cost_a.hbm_bytes,
+                       coll_bytes=max(cost_a.coll_bytes,
+                                      recorded_coll_bytes),
+                       model_flops=cost_a.model_flops)
+    report = rl.report()
+    report["residency_gb"] = round(
+        cost_a.detail["residency_bytes"] / 1e9, 2)
+    report["n_micro"] = n_micro
+    report["dp"] = dp
+    report["tp"] = tp
+    return {"roofline": report,
+            "analytic": {"flops": cost_a.flops,
+                         "hbm_bytes": cost_a.hbm_bytes,
+                         "coll_bytes": cost_a.coll_bytes,
+                         "model_flops": cost_a.model_flops},
+            "analytic_detail": cost_a.detail}
+
+
 def run_cell(arch: str, shape: str, mesh_kind: str, *,
              attn_impl="ref", ssm_impl="ref") -> dict:
     """One cell in a fake process group of the production mesh's size
@@ -184,40 +220,16 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
     result["collective_counts"] = {
         k: v * n_micro for k, v in CO.collective_count(rec).items()}
 
-    # roofline terms: analytic (as the reference's), with the recorded
-    # collectives as a floor on the collective term
-    shp = mesh_shape(mesh)
-    dp = 1
-    for ax in SH.fit_batch_axes(mesh, cell.global_batch,
-                                SH.batch_includes_model(cfg)):
-        dp *= shp[ax]
-    dp = max(1, dp)
-    tp = shp["model"] if not SH.batch_includes_model(cfg) else 1
-    cost_a = FL.cell_cost(cfg, cell, n_dev, dp=dp, tp=tp, n_micro=n_micro,
-                          fsdp=SH._needs_fsdp(cfg), append_impl="scatter",
-                          param_dp=shp["data"])
-    rl = roof.Roofline(flops=cost_a.flops, hbm_bytes=cost_a.hbm_bytes,
-                       coll_bytes=max(cost_a.coll_bytes,
-                                      result["collectives"]["total"]),
-                       model_flops=cost_a.model_flops)
-    result["roofline"] = rl.report()
-    result["roofline"]["residency_gb"] = round(
-        cost_a.detail["residency_bytes"] / 1e9, 2)
-    result["roofline"]["n_micro"] = n_micro
-    result["roofline"]["dp"] = dp
-    result["roofline"]["tp"] = tp
-    result["analytic"] = {"flops": cost_a.flops,
-                          "hbm_bytes": cost_a.hbm_bytes,
-                          "coll_bytes": cost_a.coll_bytes,
-                          "model_flops": cost_a.model_flops}
-    result["analytic_detail"] = cost_a.detail
+    result.update(roofline_terms(cfg, cell, mesh_shape(mesh), n_dev,
+                                 n_micro, result["collectives"]["total"]))
     if cfg.n_experts:
         # the MoE dispatch's recorded all-to-all bytes (equal splits sized
         # to what one rank may send another) beside the analytic EP term
         # (every token's k rows, balanced over the data ranks)
         result["ep_all_to_all"] = {
             "recorded_bytes": result["collectives"].get("all-to-all", 0),
-            "analytic_bytes": FL.ep_dispatch_bytes(cfg, cell, dp)}
+            "analytic_bytes": FL.ep_dispatch_bytes(
+                cfg, cell, result["roofline"]["dp"])}
     result["ok"] = True
     return result
 

@@ -189,6 +189,36 @@ def _scan(step: Callable, carry, xs, start: int, stop: int):
     return carry, torch.stack(ys)
 
 
+def scan_once_on_meta(step: Callable, carry, xs):
+    """A scan over the leading (time) axis of ``xs`` on ``meta`` inputs:
+    ``step`` run once, on step 0, with its ``y`` expanded to the T steps
+    (contiguous, as ``torch.stack`` gives it) and its carry standing for
+    the last -- or None where ``xs`` holds values.
+
+    On ``meta`` no value exists, so stepping T times computes nothing:
+    the dry run (``launch.dryrun``) records shapes, placements, the
+    autograd graph and the collectives only, and the reference's compiled
+    dry run counts a loop body once (XLA sees a ``lax.scan`` body once).
+    Every input stays in the graph: the backward reaches each leaf the
+    stepped loop reaches, with the same shapes and placements.  There is
+    nothing to recompute, so no chunk is checkpointed.  Keyed on the
+    device alone (a DTensor reports its local shard's): every tensor
+    that holds values is stepped."""
+    seq = xs if isinstance(xs, (tuple, list)) else (xs,)
+    if seq[0].device.type != "meta":
+        return None
+    t = seq[0].shape[0]
+    x_0 = tuple(a[0] for a in seq)
+    carry, y = step(carry, x_0 if isinstance(xs, (tuple, list))
+                    else x_0[0])
+
+    def stand(y_0):
+        return y_0.unsqueeze(0).expand(t, *y_0.shape).contiguous()
+    if isinstance(y, (tuple, list)):
+        return carry, tuple(stand(c) for c in y)
+    return carry, stand(y)
+
+
 def chunked_remat_scan(step: Callable, carry, xs, chunk: int
                        ) -> Tuple[object, object]:
     """The reference's ``chunked_remat_scan``: ``step(carry, x_t) ->
@@ -202,7 +232,11 @@ def chunked_remat_scan(step: Callable, carry, xs, chunk: int
     (``torch.utils.checkpoint``, non-reentrant): the backward keeps the
     carries at the chunk boundaries only and recomputes a chunk's steps,
     so memory is O((T/chunk + chunk) x state) instead of O(T x state).
-    The forward is the same steps in the same order either way."""
+    The forward is the same steps in the same order either way.  On
+    ``meta`` inputs the step runs once (:func:`scan_once_on_meta`)."""
+    once = scan_once_on_meta(step, carry, xs)
+    if once is not None:
+        return once
     seq = xs if isinstance(xs, (tuple, list)) else (xs,)
     t = seq[0].shape[0]
     if (not torch.is_grad_enabled() or chunk <= 1 or t % chunk

@@ -15,6 +15,8 @@ local shards, and every collective it needs is called explicitly (so
   shards would cut a head;
 * :func:`on_shards`: attention that is local along its split dims (batch
   and heads), run on each rank's shards under ``local_map``;
+* :func:`on_batch_shards`: a recurrence over time, local along the
+  batch, run on each rank's batch shard under ``local_map``;
 * :func:`embed` / :func:`cross_entropy`: the vocabulary-parallel lookup
   and NLL;
 * :func:`summed` / :func:`grad_summed` / :func:`all_to_all`: the
@@ -179,6 +181,34 @@ def on_shards(fn: Callable, q: torch.Tensor, k: torch.Tensor,
     return local_map(fn, out_placements=q_pl, in_placements=in_pl,
                      device_mesh=mesh, redistribute_inputs=True)(
         *(_placed(t, mesh) for t in args))
+
+
+def on_batch_shards(fn: Callable, acts, weights=()) -> torch.Tensor:
+    """``fn(*acts, *weights)`` -- a scan over time whose activations
+    ``acts`` have their batch on dim 0 -- on each rank's batch shard
+    (``local_map``) where ``acts[0]`` is placed: the activations keep the
+    mesh dims that split ``acts[0]``'s batch and are whole along the
+    others, the weights are whole on every rank, and a weight's gradient
+    is a partial sum over the batch's mesh dims.  The output is split as
+    the batch.  Each step then runs on local tensors, with no collective
+    in the loop: on DTensors the recurrent product's backward
+    reduce-scatters the carry's gradient every step.  Pending partial sums
+    are summed first.  Plain tensors go to ``fn`` as they are."""
+    if not isinstance(acts[0], DTensor):
+        return fn(*acts, *weights)
+    acts = tuple(reduced(a) for a in acts)
+    mesh = acts[0].device_mesh
+    act_pl = [Shard(0) if pl.is_shard(0) else Replicate()
+              for pl in acts[0].placements]
+    w_pl = [Replicate()] * mesh.ndim
+    w_grad = [Partial() if pl.is_shard(0) else Replicate() for pl in act_pl]
+    n_a, n_w = len(acts), len(weights)
+    return local_map(
+        fn, out_placements=act_pl,
+        in_placements=(act_pl,) * n_a + (w_pl,) * n_w,
+        in_grad_placements=(act_pl,) * n_a + (w_grad,) * n_w,
+        device_mesh=mesh, redistribute_inputs=True)(
+        *(_placed(t, mesh) for t in acts + tuple(weights)))
 
 
 def _sum(x: torch.Tensor, groups) -> torch.Tensor:

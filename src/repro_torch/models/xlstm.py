@@ -30,6 +30,11 @@ The sLSTM's recurrent product ``(B, H, 4 ph)`` is read as ``(B, 4d)``
 and split into z, i, f, o: with H = 4 (4 ph = d) each gate takes its
 recurrent term from one head's ``h_prev`` -- the reference's layout,
 copied as it is.
+
+On placed tensors (``launch.sharding``: the batch over the data axes) each
+scan runs on each rank's batch shard (``shards.on_batch_shards``), so its
+steps are local ops and its loop makes no collective; the kernels take
+no DTensor, so placed, the scans run their plain versions.
 """
 
 from __future__ import annotations
@@ -39,11 +44,21 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
 from repro_torch.kernels.mlstm_scan.ref import M0, mlstm_step
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.slstm_scan.ref import slstm_step
 from repro_torch.models import layers as L
+from repro_torch.models import shards
+
+
+def _refuse_placed(kernel: str, x: torch.Tensor, impl: str) -> None:
+    """The kernels take no DTensor: a placed CUDA x with ``impl="kernel"``
+    raises here, before the scan's region would hand the kernel local
+    shards (placed paths run the plain versions)."""
+    if shards.is_dtensor(x) and impl == "kernel" and x.is_cuda:
+        _build.refuse_dtensor(kernel, x)
 
 
 # --------------------------------------------------------------------- #
@@ -105,9 +120,12 @@ def mlstm_forward(p, x: torch.Tensor, n_heads: int, *,
                   impl: str = "kernel") -> torch.Tensor:
     """Prefill: x ``(B, S, d)`` -> ``(B, S, d)``, one mLSTM scan."""
     b, s, _ = x.shape
+    _refuse_placed("mlstm_scan", x, impl)
     xg, z = (x @ p["up"]).chunk(2, dim=-1)          # (B, S, d_inner)
     q, k, v, log_i, log_f = _mlstm_qkv(p, xg, n_heads)
-    h = mlstm_ops.mlstm_scan(q, k, v, log_i, log_f, impl=impl)
+    h = shards.on_batch_shards(
+        lambda *a: mlstm_ops.mlstm_scan(*a, impl=impl),
+        (q, k, v, log_i, log_f))
     return _mlstm_out(p, h.reshape(b, s, -1), z)
 
 
@@ -169,7 +187,10 @@ def slstm_forward(p, x: torch.Tensor, n_heads: int, *,
     if p["r_rec"].shape[0] != n_heads:
         raise ValueError(f"r_rec has {p['r_rec'].shape[0]} heads, not "
                          f"{n_heads}")
-    hs = slstm_ops.slstm_scan(x @ p["w_in"], p["r_rec"], impl=impl)
+    _refuse_placed("slstm_scan", x, impl)
+    hs = shards.on_batch_shards(
+        lambda pre_x, r_rec: slstm_ops.slstm_scan(pre_x, r_rec, impl=impl),
+        (x @ p["w_in"],), (p["r_rec"],))
     return hs @ p["out"]
 
 
